@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ray_tpu's model path, for one NVIDIA Hopper GPU.
+
+The JAX package ``ray_tpu`` is the reference; module names here mirror it
+(``ops.attention``, ``ops.flash_attention``, ``models.transformer``) so each
+counterpart is easy to find. This package imports ``torch`` and numpy, never
+``jax`` and nothing of ``ray_tpu``. Its kernels are CUDA C++ for ``sm_90a``
+under ``csrc/``, built at first use (``ops/_kernels.py``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU they raise rather than drift to the CPU.
+"""
+
+from ray_tpu_torch.device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]
