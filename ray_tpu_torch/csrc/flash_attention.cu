@@ -9,16 +9,20 @@
 // dtype (f32 or bf16); lse and delta are contiguous f32 [BH, L].
 // D is 64 or 128.
 //
-// Numerics follow the TPU kernels: each tile is converted to f32 as it is
-// loaded, every product, sum and softmax step is an f32 FMA, and outputs are
-// rounded to the input dtype once, at the end. The causal mask is the
-// reference's finite -1e30 on global row/column indices; columns past the
-// end of the sequence get -inf (probability exactly 0); the logsumexp uses
-// max(l, 1e-30) as the reference does.
+// Two designs. f32 inputs (and the bf16 dQ) run the f32-FMA kernels below;
+// bf16 forward and dK/dV run the tensor-core kernels of namespace sm90
+// further down. RTT_DISPATCH picks by dtype and head dim alone.
 //
-// Design. This is the simple first version: right before fast. The TPU
-// grid's sequential dimension, with scratch carried from one step to the
-// next, becomes a loop inside one thread block:
+// f32-FMA kernels. Numerics follow the TPU kernels: each tile is converted
+// to f32 as it is loaded, every product, sum and softmax step is an f32
+// FMA, and outputs are rounded to the input dtype once, at the end. The
+// causal mask is the reference's finite -1e30 on global row/column indices;
+// columns past the end of the sequence get -inf (probability exactly 0);
+// the logsumexp uses max(l, 1e-30) as the reference does.
+//
+// Their design is the simple first version. The TPU grid's sequential
+// dimension, with scratch carried from one step to the next, becomes a loop
+// inside one thread block:
 //   - forward and dQ: one block per (bh, 64-row q tile), looping over the
 //     k tiles up to the diagonal;
 //   - dK/dV: one block per (bh, 64-row k tile), looping over the q tiles
@@ -28,24 +32,24 @@
 // ty*4+i and columns tx+16*j. Tiles sit in dynamic shared memory as f32 rows
 // padded by one float (no bank conflicts): at D = 64 the blocks take 67 KB
 // (forward), 84 KB (dQ) and 100 KB (dK/dV), above the 48 KB static limit.
-// The tile is fixed at 64 rows; the API's block_q/block_k only choose
-// between this path and the reference, and the result does not depend on
-// tiling beyond rounding.
+// The API's block_q/block_k only choose between the kernels and the
+// reference; the kernels tile as they need.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at the GPT-2 125M
 // training shape [96, 1024, 64] bf16 causal, counting each input read once
 // and each output written once: forward 12.9 GFLOP / 50.7 MB -> 15 us, set by
 // bytes; dQ 19.4 GFLOP -> 20 us and dK/dV 25.8 GFLOP -> 26 us, set by
-// operations. These kernels use no tensor cores (f32 FMA on the CUDA cores,
-// 67 TFLOP/s at most), read every operand from shared memory for each FMA
-// pair, and reload K/V (or Q/dO) from L2 for every tile, so they run far
-// from that bound. wgmma on bf16 tiles, TMA loads and a pipelined ring of
-// tiles are the work of a later version.
+// operations. The f32-FMA kernels use no tensor cores (67 TFLOP/s at most)
+// and reread every operand from shared memory for each FMA pair, so they run
+// far from that bound; the sm90 kernels feed bf16 tiles to wgmma from a TMA
+// ring (see there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -462,41 +466,426 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores: the forward (K1) and dK/dV (K3) for bf16 inputs.
+//
+// Both are bound by their products at the training shape (the forward by
+// bytes only if the products ran at the tensor cores' peak), so the design
+// feeds the tensor cores and keeps everything else out of their way. A
+// thread block is consumer warpgroups (K1: two; K3: two at D = 64, one at
+// D = 128) and one producer warp. The producer's first lane asks the TMA
+// for every tile the block reads, into a ring of two stages; each stage
+// has a "full" mbarrier (the TMA completes it) and an "empty" one (the
+// consumer threads arrive when their products have read it), so the next
+// tile is in flight while this one computes. The consumers multiply with
+// wgmma, f32 sums in registers, and run the softmax arithmetic on those
+// registers. A product whose left operand is a probability tile takes it
+// from registers, rounded to bf16 (a TPU's default-precision f32 matmul is
+// one bf16 pass too); everything else stays f32. Exponentials are
+// ex2.approx with the scale folded into log2 units.
+
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kBlockThreads = kConsumers + 32;  // and the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// K1, for _flash_kernel. Block: 128 q rows (64 a warpgroup) of one bh;
+// loops over k tiles of BN rows up to the diagonal. Per tile, a warpgroup computes S = Q K^T
+// (wgmma, both operands in shared memory, K-major), updates its rows'
+// running max and denominator on the accumulator fragment (a row lives on
+// the 4 lanes of a quad: two shuffles), and adds P V with P from registers
+// and V read MN-major.
+constexpr int kFwdRows = 128;
+
+template <int D, int BN>
+struct FwdSmem {
+  alignas(1024) bf16 q[kFwdRows * D];  // D / 64 panels of [kFwdRows, 64]
+  alignas(1024) bf16 k[2][BN * D];     // per stage: D / 64 panels of [BN, 64]
+  alignas(1024) bf16 v[2][BN * D];
+  uint64_t q_full, full[2], empty[2];
+};
+
+template <int D, int BN>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int lq, int lk, float scale, int causal) {
+  using namespace hopper;
+  auto& sm = aligned_smem<FwdSmem<D, BN>>();
+  constexpr int kPanels = D / 64;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int nk = (lk + BN - 1) / BN;
+  const int ntiles = causal ? min(nk, (q0 + kFwdRows - 1) / BN + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&sm.q_full, kFwdRows * D * sizeof(bf16));
+      for (int p = 0; p < kPanels; ++p)
+        tma_load_3d(sm.q + p * kFwdRows * 64, &tm_q, &sm.q_full, p * 64, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t & 1;
+        if (t >= 2) mbar_wait(&sm.empty[s], ((t >> 1) - 1) & 1);
+        mbar_expect_tx(&sm.full[s], 2 * BN * D * sizeof(bf16));
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load_3d(sm.k[s] + p * BN * 64, &tm_k, &sm.full[s], p * 64, t * BN, bh);
+          tma_load_3d(sm.v[s] + p * BN * 64, &tm_v, &sm.full[s], p * 64, t * BN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int row = q0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and row + 8
+  const float c2 = scale * kLog2e;
+  const bf16* q_wg = sm.q + wg * 64 * 64;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue};  // running max, log2 units
+  float l[2] = {0.f, 0.f};                // this thread's share of the denominator
+
+  mbar_wait(&sm.q_full, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t & 1;
+    mbar_wait(&sm.full[s], (t >> 1) & 1);
+
+    float sc[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int panel = kk / 4, off = (kk % 4) * 16;
+      Wgmma<BN>::ss(sc, desc_sw128(q_wg + panel * kFwdRows * 64 + off),
+                    desc_sw128(sm.k[s] + panel * BN * 64 + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Scores in log2 units, masked, and the new running max of each row.
+    const int col0 = t * BN + (lane % 4) * 2;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = row + (i % 4 >= 2 ? 8 : 0), c = col0 + (i / 4) * 8 + (i % 2);
+      float x = sc[i] * c2;
+      if (causal && c > r) x = kMaskValue;
+      if (c >= lk) x = -INFINITY;
+      sc[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = ex2(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int h = (i % 4) / 2;
+      sc[i] = ex2(sc[i] - m[h]);
+      l[h] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i % 4) / 2];
+
+    uint32_t pa[BN / 16][4];
+    fragment_to_a<BN / 16>(pa, sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      Wgmma<D>::rs(acc, pa[kk], desc_sw128(sm.v[s] + kk * 16 * 64, BN * 128), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = row + 8 * h;
+    const float denom = fmaxf(l[h], 1e-30f), inv = 1.f / denom;
+    if (r >= lq) continue;
+    uint32_t* out = reinterpret_cast<uint32_t*>(o + ((size_t)bh * lq + r) * D + (lane % 4) * 2);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      out[j * 4] = pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    if (lane % 4 == 0) lse[(size_t)bh * lq + r] = m[h] * kLn2 + logf(denom);
+  }
+}
+
+// K3, for _bwd_dkv_kernel. Block: 64 * NWG k rows (64 a warpgroup) of one
+// bh, resident in shared memory; loops over q tiles of 64 from the diagonal on, so dK and dV need
+// no atomics. The scores are computed transposed, k rows by q columns, so
+// that both accumulating products take their left operand from registers:
+//   S^T = K Q^T, dP^T = V dO^T           (wgmma, shared memory, K-major)
+//   P^T = exp(S^T scale - lse[col])       (registers; lse, delta per column)
+//   dS^T = P^T (dP^T - delta[col]) scale
+//   dV += P^T dO, dK += dS^T Q            (A = bf16 registers, B MN-major)
+constexpr int kDkvQ = 64;
+
+template <int D, int NWG>
+struct DkvSmem {
+  alignas(1024) bf16 k[64 * NWG * D];  // D / 64 panels of [64 NWG, 64]
+  alignas(1024) bf16 v[64 * NWG * D];
+  alignas(1024) bf16 q[2][kDkvQ * D];  // per stage: D / 64 panels of [kDkvQ, 64]
+  alignas(1024) bf16 dout[2][kDkvQ * D];
+  alignas(16) float lse[2][kDkvQ];
+  alignas(16) float delta[2][kDkvQ];
+  uint64_t kv_full, full[2], empty[2];
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_lse,
+                               const __grid_constant__ CUtensorMap tm_delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv, int lq, int lk,
+                               float scale, int causal) {
+  using namespace hopper;
+  auto& sm = aligned_smem<DkvSmem<D, NWG>>();
+  constexpr int kPanels = D / 64, kRows = 64 * NWG, kConsumerThreads = NWG * 128;
+  const int k0 = blockIdx.x * kRows;  // low k tiles walk the most q tiles: first
+  const int bh = blockIdx.y;
+  const int nq = (lq + kDkvQ - 1) / kDkvQ;
+  const int qt0 = causal ? k0 / kDkvQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warp
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(&sm.kv_full, 2 * kRows * D * sizeof(bf16));
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(sm.k + p * kRows * 64, &tm_k, &sm.kv_full, p * 64, k0, bh);
+        tma_load_3d(sm.v + p * kRows * 64, &tm_v, &sm.kv_full, p * 64, k0, bh);
+      }
+      for (int t = 0; t < nq - qt0; ++t) {
+        const int s = t & 1, q0 = (qt0 + t) * kDkvQ;
+        if (t >= 2) mbar_wait(&sm.empty[s], ((t >> 1) - 1) & 1);
+        mbar_expect_tx(&sm.full[s], 2 * kDkvQ * D * sizeof(bf16) + 2 * kDkvQ * sizeof(float));
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load_3d(sm.q[s] + p * kDkvQ * 64, &tm_q, &sm.full[s], p * 64, q0, bh);
+          tma_load_3d(sm.dout[s] + p * kDkvQ * 64, &tm_do, &sm.full[s], p * 64, q0, bh);
+        }
+        tma_load_1d(sm.lse[s], &tm_lse, &sm.full[s], bh * lq + q0);
+        tma_load_1d(sm.delta[s], &tm_delta, &sm.full[s], bh * lq + q0);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int krow = k0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and krow + 8
+  const float c2 = scale * kLog2e;
+  const bf16* k_wg = sm.k + wg * 64 * 64;
+  const bf16* v_wg = sm.v + wg * 64 * 64;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(&sm.kv_full, 0);
+  for (int t = 0; t < nq - qt0; ++t) {
+    const int s = t & 1, q0 = (qt0 + t) * kDkvQ;
+    mbar_wait(&sm.full[s], (t >> 1) & 1);
+
+    float st[kDkvQ / 2], dpt[kDkvQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int panel = kk / 4, off = (kk % 4) * 16;
+      Wgmma<kDkvQ>::ss(st, desc_sw128(k_wg + panel * kRows * 64 + off),
+                       desc_sw128(sm.q[s] + panel * kDkvQ * 64 + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int panel = kk / 4, off = (kk % 4) * 16;
+      Wgmma<kDkvQ>::ss(dpt, desc_sw128(v_wg + panel * kRows * 64 + off),
+                       desc_sw128(sm.dout[s] + panel * kDkvQ * 64 + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+#pragma unroll
+    for (int j = 0; j < kDkvQ / 8; ++j) {
+      const int cl = j * 8 + (lane % 4) * 2;  // column in the tile
+      const float2 lse2 = *reinterpret_cast<const float2*>(&sm.lse[s][cl]);
+      const float2 del2 = *reinterpret_cast<const float2*>(&sm.delta[s][cl]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, r = krow + (e >= 2 ? 8 : 0), c = q0 + cl + (e % 2);
+        const float lse_c = e % 2 ? lse2.y : lse2.x, delta_c = e % 2 ? del2.y : del2.x;
+        const bool live = c < lq && !(causal && r > c);
+        const float p = live ? ex2(st[i] * c2 - lse_c * kLog2e) : 0.f;
+        dpt[i] = p * (dpt[i] - delta_c) * scale;
+        st[i] = p;
+      }
+    }
+    uint32_t pa[kDkvQ / 16][4], dsa[kDkvQ / 16][4];
+    fragment_to_a<kDkvQ / 16>(pa, st);
+    fragment_to_a<kDkvQ / 16>(dsa, dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvQ / 16; ++kk)
+      Wgmma<D>::rs(dv_acc, pa[kk], desc_sw128(sm.dout[s] + kk * 16 * 64, kDkvQ * 128), 1);
+#pragma unroll
+    for (int kk = 0; kk < kDkvQ / 16; ++kk)
+      Wgmma<D>::rs(dk_acc, dsa[kk], desc_sw128(sm.q[s] + kk * 16 * 64, kDkvQ * 128), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = krow + 8 * h;
+    if (r >= lk) continue;
+    const size_t at = ((size_t)bh * lk + r) * D + (lane % 4) * 2;
+    uint32_t* out_k = reinterpret_cast<uint32_t*>(dk + at);
+    uint32_t* out_v = reinterpret_cast<uint32_t*>(dv + at);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      out_k[j * 4] = pack_bf16(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      out_v[j * 4] = pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// K1's k-tile width: 128 where the registers allow (D = 64), else 64.
+template <int D>
+constexpr int fwd_block_k() { return D == 64 ? 128 : 64; }
+
+// K3's consumer warpgroups: two at D = 64; one at D = 128, where dK, dV and
+// the two score tiles take 192 f32 registers a thread.
+template <int D>
+constexpr int dkv_warpgroups() { return D == 64 ? 2 : 1; }
+
+template <int D>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int bh, int lq, int lk, float scale, int causal,
+                            cudaStream_t stream) {
+  constexpr int BN = fwd_block_k<D>();
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = hopper::map_rows_bf16(&tq, q, bh, lq, D, kFwdRows)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tk, k, bh, lk, D, BN)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tv, v, bh, lk, D, BN)) != cudaSuccess) return err;
+  constexpr size_t smem = sizeof(FwdSmem<D, BN>) + 1024;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D, BN><<<dim3((lq + kFwdRows - 1) / kFwdRows, bh), kBlockThreads, smem,
+                                  stream>>>(tq, tk, tv, static_cast<bf16*>(o),
+                                            static_cast<float*>(lse), lq, lk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dk, void* dv, int bh,
+                                int lq, int lk, float scale, int causal, cudaStream_t stream) {
+  constexpr int NWG = dkv_warpgroups<D>(), kRows = 64 * NWG;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  cudaError_t err;
+  if ((err = hopper::map_rows_bf16(&tq, q, bh, lq, D, kDkvQ)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tdo, dout, bh, lq, D, kDkvQ)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tk, k, bh, lk, D, kRows)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tv, v, bh, lk, D, kRows)) != cudaSuccess) return err;
+  if ((err = hopper::map_vec_f32(&tlse, lse, (long long)bh * lq, kDkvQ)) != cudaSuccess)
+    return err;
+  if ((err = hopper::map_vec_f32(&tdelta, delta, (long long)bh * lq, kDkvQ)) != cudaSuccess)
+    return err;
+  constexpr size_t smem = sizeof(DkvSmem<D, NWG>) + 1024;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D, NWG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wgmma_kernel<D, NWG><<<dim3((lk + kRows - 1) / kRows, bh), NWG * 128 + 32, smem,
+                                       stream>>>(tq, tk, tv, tdo, tlse, tdelta,
+                                                 static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                 lq, lk, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
+template <int D, typename... Args>
+cudaError_t launch_bwd_dq_bf16(Args... args) {
+  return launch_bwd_dq<__nv_bfloat16, D>(args...);
+}
+
 }  // namespace
 
-// dtype codes: 0 = f32, 1 = bf16. Each entry point returns the
-// cudaError_t of the launch (0 on success); an unsupported dtype or head
-// dimension returns cudaErrorInvalidValue and launches nothing.
-#define RTT_DISPATCH(DTYPE, HEAD_DIM, LAUNCH, ...)                              \
+// dtype codes: 0 = f32, 1 = bf16. f32 runs the f32-FMA kernels; bf16 runs
+// the tensor-core forward and dK/dV and the f32-FMA dQ. Each entry point
+// returns the cudaError_t of the launch (0 on success); an unsupported
+// dtype or head dimension returns cudaErrorInvalidValue and launches
+// nothing.
+#define RTT_DISPATCH(DTYPE, HEAD_DIM, F32_LAUNCH, BF16_LAUNCH, ...)               \
   switch ((DTYPE) * 1000 + (HEAD_DIM)) {                                        \
-    case 0 * 1000 + 64: return LAUNCH<float, 64>(__VA_ARGS__);                  \
-    case 0 * 1000 + 128: return LAUNCH<float, 128>(__VA_ARGS__);                \
-    case 1 * 1000 + 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);          \
-    case 1 * 1000 + 128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);        \
+    case 0 * 1000 + 64: return F32_LAUNCH<float, 64>(__VA_ARGS__);              \
+    case 0 * 1000 + 128: return F32_LAUNCH<float, 128>(__VA_ARGS__);            \
+    case 1 * 1000 + 64: return BF16_LAUNCH<64>(__VA_ARGS__);                    \
+    case 1 * 1000 + 128: return BF16_LAUNCH<128>(__VA_ARGS__);                  \
     default: return cudaErrorInvalidValue;                                      \
   }
 
 extern "C" int rtt_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int lq, int lk, float scale, int causal,
                              void* stream) {
-  RTT_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, o, lse, bh, lq, lk, scale, causal,
-               static_cast<cudaStream_t>(stream));
+  RTT_DISPATCH(dtype, head_dim, launch_fwd, sm90::launch_fwd_bf16, q, k, v, o, lse, bh, lq, lk,
+               scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rtt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                                 const void* v, const void* dout, const void* lse,
                                 const void* delta, void* dq, int bh, int lq, int lk, float scale,
                                 int causal, void* stream) {
-  RTT_DISPATCH(dtype, head_dim, launch_bwd_dq, q, k, v, dout, lse, delta, dq, bh, lq, lk, scale,
-               causal, static_cast<cudaStream_t>(stream));
+  RTT_DISPATCH(dtype, head_dim, launch_bwd_dq, launch_bwd_dq_bf16, q, k, v, dout, lse, delta, dq,
+               bh, lq, lk, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rtt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                                  const void* v, const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv, int bh, int lq, int lk,
                                  float scale, int causal, void* stream) {
-  RTT_DISPATCH(dtype, head_dim, launch_bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh, lq, lk,
-               scale, causal, static_cast<cudaStream_t>(stream));
+  RTT_DISPATCH(dtype, head_dim, launch_bwd_dkv, sm90::launch_bwd_dkv_bf16, q, k, v, dout, lse,
+               delta, dk, dv, bh, lq, lk, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* rtt_error_string(int err) {

@@ -8,17 +8,17 @@ Kept from the reference:
   ``wo`` [L, H, Dh, D]. ``models.convert.params_from_numpy`` carries JAX
   params over by name alone.
 - **bf16 compute, f32 master params**: params live in ``param_dtype``
-  and are cast to ``dtype`` at use; layer norm runs in f32.
+  and are cast to ``dtype`` for use, once per step; layer norm runs in f32.
 - **Remat**: ``remat_policy="full"`` checkpoints each block
   (``torch.utils.checkpoint``), so backward recomputes it, flash-attention
   forward included.
+- **f32 logits**: the tied LM head multiplies operands in ``dtype`` and
+  keeps the f32 sums as logits (the reference's
+  ``preferred_element_type=float32``).
 
 What changes: ``lax.scan`` over the stacked layers is a Python loop; the
-train step updates params in place with a ``torch.optim`` optimizer. The
-tied LM head multiplies in ``dtype`` with f32 accumulation, as the
-reference does, but cuBLAS rounds its output to ``dtype`` before the f32
-cast (the reference keeps f32 logits); with ``dtype=float32`` the two
-agree. Mesh sharding, ring attention, MoE, pipeline parallelism and the
+train step updates params in place with a ``torch.optim`` optimizer. Mesh
+sharding, ring attention, MoE, pipeline parallelism and the
 ``"matmuls"``/``"dots"`` remat policies belong to later slices and raise
 ``NotImplementedError``.
 """
@@ -175,11 +175,9 @@ def count_params(params: Params) -> int:
 
 
 def _layer_norm(x, scale, bias, eps):
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
+    """The reference's f32 layer norm (biased variance), as one op."""
+    return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
+                        eps).to(x.dtype)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -207,28 +205,48 @@ def _attention(q, k, v, cfg: GPTConfig):
 
 def _ffn(h, bp, cfg: GPTConfig):
     cd = cfg.dtype
-    up = torch.einsum("bld,df->blf", h, bp["w_up"].to(cd)) + bp["b_up"].to(cd)
+    up = h @ bp["w_up"].to(cd) + bp["b_up"].to(cd)
     # jax.nn.gelu's default is the tanh approximation.
     up = F.gelu(up, approximate="tanh")
-    return (torch.einsum("blf,fd->bld", up, bp["w_down"].to(cd))
-            + bp["b_down"].to(cd))
+    return up @ bp["w_down"].to(cd) + bp["b_down"].to(cd)
 
 
 def _block(x, bp, cfg: GPTConfig, positions):
     """One pre-LN transformer block. x: [B, L, D]."""
     cd = cfg.dtype
+    b, l, d = x.shape
+    # The reference's einsums, as matmuls over flattened head axes: each is
+    # one cuBLAS call with fewer ops around it for the host to launch.
     h = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.eps)
-    qkv = (torch.einsum("bld,dshk->blshk", h, bp["wqkv"].to(cd))
+    wqkv = bp["wqkv"].to(cd)
+    qkv = ((h @ wqkv.reshape(d, -1)).view(b, l, *wqkv.shape[1:])
            + bp["bqkv"].to(cd))
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if cfg.rotary:
         q, k = _rope(q, positions), _rope(k, positions)
     attn = _attention(q, k, v, cfg)
-    proj = (torch.einsum("blhk,hkd->bld", attn, bp["wo"].to(cd))
-            + bp["bo"].to(cd))
+    wo = bp["wo"].to(cd)
+    proj = attn.reshape(b, l, -1) @ wo.reshape(-1, d) + bp["bo"].to(cd)
     x = x + proj
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.eps)
     return x + _ffn(h, bp, cfg)
+
+
+# Block params that layer norm reads in f32; the rest feed bf16 products.
+_LN_PARAMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+
+
+def _layer_params(blocks: Params, cd: torch.dtype) -> List[Params]:
+    """The stacked block params as one dict per layer, the weights and
+    biases cast to the compute dtype once per step. A cast inside the block
+    would run again in remat's recompute, and indexing a layer out of the
+    stack would give each layer a backward that writes a full-size zero
+    gradient; unbind's backward stacks the layers' gradients once."""
+    split = {name: (w if name in _LN_PARAMS else w.to(cd)).unbind(0)
+             for name, w in blocks.items()}
+    n_layers = len(next(iter(split.values())))
+    return [{name: ws[i] for name, ws in split.items()}
+            for i in range(n_layers)]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
@@ -243,17 +261,49 @@ def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
     if not cfg.rotary:
         x = x + params["pos_embed"][:L].to(cd)
 
-    blocks = params["blocks"]
-    for layer in range(cfg.n_layers):
-        bp = {name: w[layer] for name, w in blocks.items()}
+    for bp in _layer_params(params["blocks"], cd):
         if cfg.remat:
             x = checkpoint(_block, x, bp, cfg, positions, use_reentrant=False)
         else:
             x = _block(x, bp, cfg, positions)
 
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.eps)
-    # Tied LM head: operands in the compute dtype, f32 logits for the loss.
-    return torch.einsum("bld,vd->blv", x, params["tok_embed"].to(cd)).float()
+    return _lm_head(x, params["tok_embed"].to(cd))
+
+
+def _lm_head(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Tied LM head: f32 logits [B, L, V] from x [B, L, D] and the
+    embedding [V, D], both in the compute dtype, with the products summed
+    and returned in f32 (no rounding of the logits to the compute dtype)."""
+    b, l, d = x.shape
+    x2 = x.reshape(b * l, d)
+    if x.dtype == torch.float32:
+        logits = torch.mm(x2, embed.t())
+    else:
+        logits = _F32Logits.apply(x2, embed)
+    return logits.reshape(b, l, -1)
+
+
+class _F32Logits(torch.autograd.Function):
+    """x2 [N, D] @ embed [V, D]^T in f32 from low-precision operands. On
+    CUDA one cuBLAS call with an f32 output (``aten::mm.dtype``, which has
+    no derivative of its own); the CPU has no kernel for it, so there the
+    operands are upcast, which is the same arithmetic. The backward rounds
+    the f32 cotangent to the operands' dtype and multiplies in it, as a
+    TPU's default-precision product of the reference's transpose does."""
+
+    @staticmethod
+    def forward(ctx, x2, embed):
+        ctx.save_for_backward(x2, embed)
+        if x2.is_cuda:
+            return torch.mm(x2, embed.t(), out_dtype=torch.float32)
+        return torch.mm(x2.float(), embed.float().t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, embed = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ embed, g.t() @ x2
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: GPTConfig,

@@ -2,8 +2,11 @@
 
 Each ``ray_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a shared
 library with a plain C interface, which ``ctypes`` loads. The library goes
-to ``ray_tpu_torch/_build/`` under a name keyed by a hash of its source and
-flags, so an edited source builds anew and an unchanged one is built once.
+to ``ray_tpu_torch/_build/`` under a name keyed by a hash of its source,
+every header in ``csrc/`` (``*.cuh``, which a source may include) and the
+flags, so an edited source or header builds anew and an unchanged one is
+built once. The libraries link nothing beyond the CUDA runtime: the TMA's
+tensor-map encoder comes through the runtime's entry-point query.
 Nothing here runs at import: the first launch builds, or a caller builds
 every source at once, in parallel, with :func:`build_all`.
 """
@@ -51,9 +54,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,7 +1,8 @@
 """Flash attention on Hopper (port of ``ray_tpu/ops/flash_attention.py``).
 
-Three hand-written CUDA kernels in ``csrc/flash_attention.cu`` replace the
-three Pallas TPU kernels:
+Hand-written CUDA kernels in ``csrc/flash_attention.cu`` replace the three
+Pallas TPU kernels. bf16 forward and dK/dV run on the tensor cores (wgmma
+fed by TMA); f32, and the bf16 dQ, run f32 FMAs on the CUDA cores:
 
 - ``FWD`` (``rtt_flash_fwd``) for ``_flash_kernel``: blockwise attention
   with an online softmax; writes O and the per-row logsumexp;
@@ -11,7 +12,10 @@ three Pallas TPU kernels:
   dK and dV, one block per k tile, so no atomics.
 
 Each has a plain PyTorch version here (``*_plain``) that repeats the
-kernel's arithmetic tile by tile in f32. A wrapper (``flash_forward``,
+kernel's arithmetic tile by tile in f32, rounding where the kernel rounds:
+for bf16 inputs the forward and dK/dV round each probability tile (and
+dK/dV each dS tile) to bf16 before its product, as the tensor-core kernels
+feed them to wgmma. A wrapper (``flash_forward``,
 ``flash_backward_dq``, ``flash_backward_dkv``) launches the kernel for a
 CUDA tensor and takes the plain version only for a CPU tensor. The
 ``[B, L, H, D]`` <-> ``[BH, L, D]`` transposes stay torch copies
@@ -23,7 +27,7 @@ reference's ``[BH, 1, L]`` without the TPU's unit dimension).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,8 +36,10 @@ from ray_tpu_torch.ops.attention import mha_reference
 
 _NEG_INF = -1e30
 
-# The kernels' tile: rows of Q and of K per thread block.
-TILE = 64
+# The kernels' tiles, in rows, where they shape a plain version's loop.
+F32_TILE = 64          # f32-FMA kernels (f32 K1-K3, bf16 K2): q and k tiles
+FWD_BF16_BLOCK_K = {64: 128, 128: 64}   # bf16 K1: k tile, by head dim
+DKV_BF16_BLOCK_Q = 64  # bf16 K3: q rows of a step
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +67,12 @@ def reset_launches() -> None:
 # loop inside a block is the Python loop.
 
 
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An f32 tile as the tensor-core kernels hand it to a product: rounded
+    to bf16 for bf16 inputs, unchanged for f32 ones."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
+
+
 def _tiles(x: torch.Tensor, tile: int) -> torch.Tensor:
     """[BH, L, ...] -> [BH, ceil(L/tile), tile, ...] in f32, zero-padded."""
     bh, n = x.shape[:2]
@@ -83,11 +95,17 @@ def _positions(n_tiles: int, tile: int, device) -> torch.Tensor:
 
 
 def flash_forward_plain(q3, k3, v3, *, scale: float, causal: bool,
-                        tile: int = TILE):
+                        tile: Optional[int] = None):
     """(O [BH, Lq, D] in q3's dtype, lse [BH, Lq] f32) as ``FWD`` computes
     them: for each k tile, every q tile on or below the diagonal updates its
-    running max, denominator and f32 accumulator."""
+    running max, denominator and f32 accumulator. ``tile`` defaults to the
+    kernel's k tile: for bf16 the probabilities are rounded relative to the
+    running max, so where they round depends on it. The denominator sums
+    the unrounded probabilities, as the kernel does."""
     lq, lk = q3.shape[1], k3.shape[1]
+    if tile is None:
+        tile = (FWD_BF16_BLOCK_K.get(q3.shape[-1], F32_TILE)
+                if q3.dtype == torch.bfloat16 else F32_TILE)
     q, k, v = _tiles(q3, tile), _tiles(k3, tile), _tiles(v3, tile)
     nq, nk = q.shape[1], k.shape[1]
     rows = _positions(nq, tile, q.device)[:, :, None]     # [nq, T, 1]
@@ -106,7 +124,8 @@ def flash_forward_plain(q3, k3, v3, *, scale: float, causal: bool,
         corr = torch.exp(m[:, lo:] - m_new)
         l[:, lo:] = l[:, lo:] * corr + p.sum(-1)
         acc[:, lo:] = (acc[:, lo:] * corr[..., None]
-                       + torch.einsum("bits,bsd->bitd", p, v[:, j]))
+                       + torch.einsum("bits,bsd->bitd",
+                                      _operand(p, q3.dtype), v[:, j]))
         m[:, lo:] = m_new
     denom = l.clamp_min(1e-30)
     o = _untile(acc / denom[..., None], lq).to(q3.dtype)
@@ -115,7 +134,7 @@ def flash_forward_plain(q3, k3, v3, *, scale: float, causal: bool,
 
 
 def flash_backward_dq_plain(q3, k3, v3, do3, lse, delta, *, scale: float,
-                            causal: bool, tile: int = TILE):
+                            causal: bool, tile: int = F32_TILE):
     """dQ [BH, Lq, D] in q3's dtype as ``BWD_DQ`` computes it."""
     lq, lk = q3.shape[1], k3.shape[1]
     q, k, v, do = (_tiles(x, tile) for x in (q3, k3, v3, do3))
@@ -138,11 +157,15 @@ def flash_backward_dq_plain(q3, k3, v3, do3, lse, delta, *, scale: float,
 
 
 def flash_backward_dkv_plain(q3, k3, v3, do3, lse, delta, *, scale: float,
-                             causal: bool, tile: int = TILE):
+                             causal: bool, tile: Optional[int] = None):
     """(dK, dV) [BH, Lk, D] in k3's/v3's dtype as ``BWD_DKV`` computes
     them: for each q tile, every k tile on or left of the diagonal
-    accumulates P^T dO and dS^T Q."""
+    accumulates P^T dO and dS^T Q. For bf16, P and dS are rounded to bf16
+    before those products (dS is computed from the unrounded P). ``tile``
+    defaults to the kernel's q step."""
     lq, lk = q3.shape[1], k3.shape[1]
+    if tile is None:
+        tile = DKV_BF16_BLOCK_Q if q3.dtype == torch.bfloat16 else F32_TILE
     q, k, v, do = (_tiles(x, tile) for x in (q3, k3, v3, do3))
     lse_t, delta_t = _tiles(lse, tile), _tiles(delta, tile)
     nq, nk = q.shape[1], k.shape[1]
@@ -156,10 +179,12 @@ def flash_backward_dkv_plain(q3, k3, v3, do3, lse, delta, *, scale: float,
             s = s.masked_fill(cols[:hi] > rows, _NEG_INF)
         p = torch.exp(s - lse_t[:, i, None, :, None])
         p = p.masked_fill((rows >= lq) | (cols[:hi] >= lk), 0.0)
-        dv[:, :hi] += torch.einsum("bjts,btd->bjsd", p, do[:, i])
+        dv[:, :hi] += torch.einsum("bjts,btd->bjsd", _operand(p, q3.dtype),
+                                   do[:, i])
         dp = torch.einsum("btd,bjsd->bjts", do[:, i], v[:, :hi])
         ds = p * (dp - delta_t[:, i, None, :, None]) * scale
-        dk[:, :hi] += torch.einsum("bjts,btd->bjsd", ds, q[:, i])
+        dk[:, :hi] += torch.einsum("bjts,btd->bjsd", _operand(ds, q3.dtype),
+                                   q[:, i])
     return _untile(dk, lk).to(k3.dtype), _untile(dv, lk).to(v3.dtype)
 
 
@@ -313,7 +338,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention on [B, L, H, D]; takes the reference when the shapes
     don't tile by the blocks (the reference's rule, kept as it is: the
-    blocks choose the path, the kernels' own tile is ``TILE``)."""
+    blocks choose the path; the kernels tile as they need, any length)."""
     lq, lk = q.shape[1], k.shape[1]
     block_q = min(block_q, lq)
     block_k = min(block_k, lk)

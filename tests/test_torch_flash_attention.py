@@ -187,3 +187,86 @@ def test_kernel_wrapper_refuses_other_devices():
     q = torch.empty(4, 128, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.flash_forward(q, q, q, scale=0.125, causal=True)
+
+
+# bf16: the port's plain versions repeat the tensor-core kernels' rounding
+# (each probability tile, and in dK/dV each dS tile, rounded to bf16 before
+# its product; the forward in the kernel's k tiles). The JAX kernels in
+# interpret mode compute in f32 from the same bf16 inputs. A rounded P is
+# off by at most 2^-9 relative, which moves a sum of p*x by at most 2^-9 of
+# sum |p*x|, and both sides round their outputs to bf16 (2^-9 relative):
+# atol 1e-2 + rtol 1e-2 on O and the gradients (measured excess over the
+# rtol term: <= 6.5e-3). lse is an f32 sum of unrounded terms on both
+# sides: the f32 tolerance of the tests above.
+_BF16 = dict(atol=1e-2, rtol=1e-2)
+_BF16_CASES = [
+    # (causal, head dim, length, JAX block)
+    (True, 64, 256, 64), (False, 64, 256, 64),
+    (True, 128, 256, 64), (False, 128, 256, 64),
+    (True, 64, 80, 16),   # ragged: every port tile is cut short
+]
+
+
+def _bf16_three(seed, l, d, bh=4):
+    rng = np.random.default_rng(seed)
+    return [jnp.asarray(rng.standard_normal((bh, l, d)).astype(np.float32),
+                        jnp.bfloat16) for _ in range(4)]
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x.astype(jnp.float32))).bfloat16()
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+@pytest.mark.parametrize("causal,d,l,block", _BF16_CASES)
+def test_bf16_forward_plain_matches_jax(causal, d, l, block):
+    q, k, v, _ = _bf16_three(20, l, d)
+    scale = d ** -0.5
+    jo, jlse = jfa._flash_forward(q, k, v, scale=scale, causal=causal,
+                                  block_q=block, block_k=block,
+                                  interpret=True)
+    to, tlse = tfa.flash_forward(_t(q), _t(k), _t(v), scale=scale,
+                                 causal=causal)
+    assert to.dtype == torch.bfloat16 and tlse.dtype == torch.float32
+    np.testing.assert_allclose(_f32(to), _f32(jo), **_BF16)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:, 0],
+                               atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,d,l,block", _BF16_CASES)
+def test_bf16_backward_plain_matches_jax(causal, d, l, block):
+    """dK/dV (rounded P and dS) and dQ (f32 throughout, as its kernel), fed
+    the JAX forward's lse and delta."""
+    q, k, v, do = _bf16_three(21, l, d)
+    scale = d ** -0.5
+    kw = dict(scale=scale, causal=causal, block_q=block, block_k=block,
+              interpret=True)
+    jo, jlse = jfa._flash_forward(q, k, v, **kw)
+    jdelta = jnp.sum(do.astype(jnp.float32) * jo.astype(jnp.float32),
+                     axis=-1)[:, None, :]
+    jgrads = jfa._flash_backward(q, k, v, do, jlse, jdelta, **kw)
+    args = (_t(q), _t(k), _t(v), _t(do),
+            torch.from_numpy(np.array(jlse)[:, 0]),
+            torch.from_numpy(np.array(jdelta)[:, 0]))
+    tdq = tfa.flash_backward_dq(*args, scale=scale, causal=causal)
+    tdk, tdv = tfa.flash_backward_dkv(*args, scale=scale, causal=causal)
+    for a, b in zip((tdq, tdk, tdv), jgrads):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(_f32(a), _f32(b), **_BF16)
+
+
+def test_bf16_plain_rounds_where_the_kernels_do():
+    """The bf16 forward rounds P to bf16 in the kernel's k tiles: it differs
+    from the same arithmetic unrounded, and from 64-column tiles at D=64."""
+    q, k, v = (_t(x) for x in _bf16_three(22, 256, 64)[:3])
+    kw = dict(scale=0.125, causal=True)
+    o128, _ = tfa.flash_forward_plain(q, k, v, **kw)
+    o64, _ = tfa.flash_forward_plain(q, k, v, tile=64, **kw)
+    o32, _ = tfa.flash_forward_plain(q.float(), k.float(), v.float(), **kw)
+    assert tfa.FWD_BF16_BLOCK_K[64] == 128
+    assert not torch.equal(o128, o64)
+    assert not torch.equal(o128, o32.bfloat16())

@@ -220,3 +220,82 @@ def test_params_from_numpy_checks_names_and_shapes():
     wrong = dict(tree, lnf_scale=np.ones(3, np.float32))
     with pytest.raises(ValueError, match="expected shape"):
         tm.params_from_numpy(wrong, tcfg, device="cpu")
+
+
+def _bf16_cfgs(**kw):
+    return (jm.GPTConfig.preset("tiny", dtype=jnp.bfloat16, **kw),
+            tm.GPTConfig.preset("tiny", dtype=torch.bfloat16, **kw))
+
+
+def _big_embed_params(jcfg, tcfg):
+    """Reference and port params with tok_embed of std ~1, so that logits
+    reach ~10, where bf16's spacing (2^-4) would show in the logits."""
+    jp, _ = _params(jcfg, tcfg)
+    jp = dict(jp, tok_embed=jp["tok_embed"] * 50.0)
+    return jp, tm.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                                    device="cpu")
+
+
+def test_bf16_logits_are_f32_sums_of_bf16_operands():
+    """With dtype=bf16 the tied head keeps f32 logits: the port's forward
+    equals jnp.einsum(..., preferred_element_type=float32) on the bf16
+    hidden state and embedding that the head is handed, to f32 rounding."""
+    jcfg, tcfg = _bf16_cfgs()
+    _, tp = _big_embed_params(jcfg, tcfg)
+    toks = torch.from_numpy(_tokens(11)[:, :-1])
+    with torch.no_grad():
+        logits = tm.forward(tp, toks, tcfg)
+        # The head's operands, by the steps forward takes before it.
+        cd = tcfg.dtype
+        x = tp["tok_embed"][toks].to(cd) + tp["pos_embed"][:64].to(cd)
+        positions = torch.arange(64)
+        for layer in range(tcfg.n_layers):
+            bp = {k: w[layer] for k, w in tp["blocks"].items()}
+            x = tt._block(x, bp, tcfg, positions)
+        x = tt._layer_norm(x, tp["lnf_scale"], tp["lnf_bias"], tcfg.eps)
+        embed = tp["tok_embed"].to(cd)
+    want = jnp.einsum("bld,vd->blv", jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                      jnp.asarray(embed.float().numpy(), jnp.bfloat16),
+                      preferred_element_type=jnp.float32)
+    assert logits.dtype == torch.float32 and logits.abs().max() > 8
+    # Only the order of the f32 sums differs: 1e-5 relative.
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bf16_loss_matches_jax():
+    """bf16 compute end to end against the JAX loss_fn on the same weights
+    and tokens. The two packages round bf16 activations at the same places
+    but sum in other orders, so a bf16 activation can differ by an ulp
+    (2^-8 relative); on this model the losses differ by ~2e-5 of their
+    value: 1e-4 relative."""
+    jcfg, tcfg = _bf16_cfgs()
+    jp, tp = _params(jcfg, tcfg)
+    jb, tb = _batches(_tokens(12))
+    jloss = jax.jit(jm.loss_fn, static_argnums=2)(jp, jb, jcfg)
+    with torch.no_grad():
+        loss = tm.loss_fn(tp, tb, tcfg)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
+
+
+def test_bf16_lm_head_gradients_match_jax():
+    """The head's backward against jax.vjp of the reference's einsum: the
+    port rounds the f32 cotangent to bf16 before its two products (as a
+    TPU's default-precision product does), the JAX CPU VJP multiplies it in
+    f32; both round the gradients to bf16. 2^-9 relative on each term and
+    on the result: rtol 2e-2 of the largest gradient entry."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 16, 64)).astype(np.float32)
+    embed = rng.standard_normal((256, 64)).astype(np.float32)
+    g = rng.standard_normal((2, 16, 256)).astype(np.float32)
+    jx, je = (jnp.asarray(a, jnp.bfloat16) for a in (x, embed))
+    _, vjp = jax.vjp(lambda a, b: jnp.einsum(
+        "bld,vd->blv", a, b, preferred_element_type=jnp.float32), jx, je)
+    want = [np.asarray(d.astype(jnp.float32)) for d in vjp(jnp.asarray(g))]
+    tx, te = (torch.from_numpy(a).bfloat16().requires_grad_(True)
+              for a in (x, embed))
+    tt._lm_head(tx, te).backward(torch.from_numpy(g))
+    for got, ref in zip((tx.grad, te.grad), want):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), ref,
+                                   atol=2e-2 * np.abs(ref).max())
