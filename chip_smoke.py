@@ -9,13 +9,14 @@
 Phases, each printed on its own line, each fatal when it fails:
 
 1. build: every ``ray_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel;
-   then the SASS of each library (``cuobjdump``): the bf16 forward and
+   then the SASS of each library (``cuobjdump``): the bf16 forward, dQ and
    dK/dV kernels must run on the tensor cores (``HGMMA``).
 2. check: each flash-attention kernel against its plain PyTorch version on
    the card, both fed the same inputs in the kernel's dtype (the plain
    versions round where the kernels round): at small shapes in f32 and
-   bf16, head dims 64 and 128, causal and not, a ragged length (80); then
-   at the training shape [8, 1024, 12, 64] bf16 causal.
+   bf16, head dims 64 and 128, causal and not, a ragged length (80), q and
+   k/v of different lengths (non-causal, both ways); then at the training
+   shape [8, 1024, 12, 64] bf16 causal.
 3. forward: GPT-2 125M at two layers, seq 256 (the shape of the JAX
    package's ``__graft_entry__.entry``), f32, flash kernels against the
    reference attention.
@@ -66,7 +67,7 @@ REPLACES = {
     "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:175",
 }
 # The design each kernel runs on the main path (bf16).
-DESIGN = {"flash_fwd": "wgmma+tma", "flash_bwd_dq": "f32-fma",
+DESIGN = {"flash_fwd": "wgmma+tma", "flash_bwd_dq": "wgmma+tma",
           "flash_bwd_dkv": "wgmma+tma"}
 
 
@@ -82,16 +83,13 @@ def gpu_line() -> str:
 
 
 def kernel_label(mangled: str):
-    """"flash_fwd_wgmma_kernel<64,128>" or "flash_fwd_kernel<f32,64>" for a
+    """"flash_fwd_wgmma_kernel<64,128>" or "flash_fwd_kernel<64>" for a
     mangled kernel name of csrc/flash_attention.cu, else None."""
     # The name follows its length, after the namespaces'.
-    m = re.search(r"\d(flash_[a-z0-9_]*?_kernel)I((?:Li\d+E|13__nv_bfloat16|f)+)E",
-                  mangled)
+    m = re.search(r"\d(flash_[a-z0-9_]*?_kernel)I((?:Li\d+E)+)E", mangled)
     if not m:
         return None
-    args = [a or ("bf16" if b else "f32") for a, b in re.findall(
-        r"Li(\d+)E|(13__nv_bfloat16)|f", m[2])]
-    return f"{m[1]}<{','.join(args)}>"
+    return f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
 
 
 def ptxas_summary(build_log: str) -> str:
@@ -133,12 +131,13 @@ def hgmma_counts(lib) -> dict:
 
 
 def check_tensor_cores(lib) -> None:
-    """The bf16 forward and dK/dV kernels (every head dim) must contain
+    """The bf16 forward, dQ and dK/dV kernels (every head dim) must contain
     HGMMA; prints each kernel's count."""
     counts = hgmma_counts(lib)
     log("sass HGMMA: " + " ".join(f"{k} {v}" for k, v in sorted(
         counts.items())))
-    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel"):
         got = {k: v for k, v in counts.items() if k.startswith(name + "<")}
         if len(got) != 2 or not all(got.values()):
             raise AssertionError(f"sass: {name} lacks HGMMA or a head dim: "
@@ -166,20 +165,21 @@ def close(name, got, want, atol, rtol) -> float:
 # Phase 2: each kernel against its plain version on the same inputs.
 
 
-def kernel_inputs(bh, l, d, dtype, seed):
+def kernel_inputs(bh, lq, lk, d, dtype, seed):
+    """q, k, v, dO: [bh, lq, d], [bh, lk, d] twice, [bh, lq, d]."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(bh, l, d, generator=gen, device="cuda").to(dtype)
-            for _ in range(4)]
+            for l in (lq, lk, lk, lq)]
 
 
-def check_kernels(fa, bh, l, d, dtype, causal, tol_out, tol_row, tol_grad,
-                  seed=0):
-    """Run the three kernels on [bh, l, d] inputs of ``dtype``; compare with
-    the plain versions on the same tensors (they compute in f32 and round
-    where the kernels round). The backward kernels get the plain forward's
-    lse and delta, so each kernel is held to its own arithmetic. Returns
-    the kernels' largest abs errors."""
-    q, k, v, do = kernel_inputs(bh, l, d, dtype, seed)
+def check_kernels(fa, bh, lq, lk, d, dtype, causal, tol_out, tol_row,
+                  tol_grad, seed=0):
+    """Run the three kernels on q of [bh, lq, d] and k, v of [bh, lk, d] in
+    ``dtype``; compare with the plain versions on the same tensors (they
+    compute in f32 and round where the kernels round). The backward kernels
+    get the plain forward's lse and delta, so each kernel is held to its own
+    arithmetic. Returns the kernels' largest abs errors."""
+    q, k, v, do = kernel_inputs(bh, lq, lk, d, dtype, seed)
     scale = d ** -0.5
     kw = dict(scale=scale, causal=causal)
 
@@ -193,7 +193,8 @@ def check_kernels(fa, bh, l, d, dtype, causal, tol_out, tol_row, tol_grad,
     dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta, **kw)
     torch.cuda.synchronize()
 
-    tag = f"{dtype} [{bh}, {l}, {d}] causal={causal}"
+    lens = lq if lq == lk else f"{lq}/{lk}"
+    tag = f"{dtype} [{bh}, {lens}, {d}] causal={causal}"
     err_o = close(f"O {tag}", o, o_ref, *tol_out)
     err_lse = close(f"lse {tag}", lse, lse_ref, *tol_row)
     err_dq = close(f"dQ {tag}", dq, dq_ref, *tol_grad)
@@ -253,7 +254,7 @@ def bound(kernel, bh, l, d, dtype, causal):
 def time_kernels(fa):
     """Kernel, plain and library times at the training shape."""
     bh, dtype, causal = B * H, torch.bfloat16, True
-    q, k, v, do = kernel_inputs(bh, L, D, dtype, seed=1)
+    q, k, v, do = kernel_inputs(bh, L, L, D, dtype, seed=1)
     kw = dict(scale=D ** -0.5, causal=causal)
     o, lse = fa.flash_forward(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
@@ -453,20 +454,29 @@ def main() -> int:
                tol_grad=(1e-4, 1e-3))
     bf16 = dict(tol_out=(1e-3, 1e-2), tol_row=(1e-4, 1e-5),
                 tol_grad=(2e-2, 1e-2))
-    # Small shapes: both dtypes, both head dims, causal and not, and a
-    # length (80) that leaves every kernel's tile ragged.
-    for bh, l, d, dtype, causal, tol in [
-            (8, 256, 64, torch.float32, True, f32),
-            (8, 256, 64, torch.float32, False, f32),
-            (8, 80, 64, torch.float32, True, f32),
-            (8, 256, 128, torch.float32, True, f32),
-            (8, 256, 64, torch.bfloat16, False, bf16),
-            (8, 256, 128, torch.bfloat16, False, bf16),
-            (8, 256, 128, torch.bfloat16, True, bf16),
-            (8, 80, 64, torch.bfloat16, True, bf16),
-            (8, 80, 128, torch.bfloat16, False, bf16)]:
-        check_kernels(fa, bh, l, d, dtype, causal, **tol)
-    errors = check_kernels(fa, B * H, L, D, torch.bfloat16, True, **bf16)
+    # Small shapes: both dtypes, both head dims, causal and not, a length
+    # (80) that leaves every kernel's tile ragged, and q against k/v of
+    # another length both ways (non-causal; 320 leaves the last 128-row q
+    # block half empty): the kernels index K and V by lk, Q, dO, lse,
+    # delta and the outputs by lq.
+    for bh, lq, lk, d, dtype, causal, tol in [
+            (8, 256, 256, 64, torch.float32, True, f32),
+            (8, 256, 256, 64, torch.float32, False, f32),
+            (8, 80, 80, 64, torch.float32, True, f32),
+            (8, 256, 256, 128, torch.float32, True, f32),
+            (8, 320, 448, 64, torch.float32, False, f32),
+            (8, 448, 320, 64, torch.float32, False, f32),
+            (8, 256, 256, 64, torch.bfloat16, False, bf16),
+            (8, 256, 256, 128, torch.bfloat16, False, bf16),
+            (8, 256, 256, 128, torch.bfloat16, True, bf16),
+            (8, 80, 80, 64, torch.bfloat16, True, bf16),
+            (8, 80, 80, 128, torch.bfloat16, False, bf16),
+            (8, 320, 448, 64, torch.bfloat16, False, bf16),
+            (8, 448, 320, 64, torch.bfloat16, False, bf16),
+            (8, 320, 448, 128, torch.bfloat16, False, bf16),
+            (8, 448, 320, 128, torch.bfloat16, False, bf16)]:
+        check_kernels(fa, bh, lq, lk, d, dtype, causal, **tol)
+    errors = check_kernels(fa, B * H, L, L, D, torch.bfloat16, True, **bf16)
     if args.quick:
         log("quick: stopping after the kernel checks")
         return 0

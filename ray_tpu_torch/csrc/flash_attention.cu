@@ -9,16 +9,15 @@
 // dtype (f32 or bf16); lse and delta are contiguous f32 [BH, L].
 // D is 64 or 128.
 //
-// Two designs. f32 inputs (and the bf16 dQ) run the f32-FMA kernels below;
-// bf16 forward and dK/dV run the tensor-core kernels of namespace sm90
-// further down. RTT_DISPATCH picks by dtype and head dim alone.
+// Two designs. f32 inputs run the f32-FMA kernels below; bf16 inputs run
+// the tensor-core kernels of namespace sm90 further down (forward, dQ and
+// dK/dV). RTT_DISPATCH picks by dtype and head dim alone.
 //
-// f32-FMA kernels. Numerics follow the TPU kernels: each tile is converted
-// to f32 as it is loaded, every product, sum and softmax step is an f32
-// FMA, and outputs are rounded to the input dtype once, at the end. The
-// causal mask is the reference's finite -1e30 on global row/column indices;
-// columns past the end of the sequence get -inf (probability exactly 0);
-// the logsumexp uses max(l, 1e-30) as the reference does.
+// f32-FMA kernels, for f32 inputs. Numerics follow the TPU kernels: every
+// product, sum and softmax step is an f32 FMA. The causal mask is the
+// reference's finite -1e30 on global row/column indices; columns past the
+// end of the sequence get -inf (probability exactly 0); the logsumexp uses
+// max(l, 1e-30) as the reference does.
 //
 // Their design is the simple first version. The TPU grid's sequential
 // dimension, with scratch carried from one step to the next, becomes a loop
@@ -42,7 +41,7 @@
 // operations. The f32-FMA kernels use no tensor cores (67 TFLOP/s at most)
 // and reread every operand from shared memory for each FMA pair, so they run
 // far from that bound; the sm90 kernels feed bf16 tiles to wgmma from a TMA
-// ring (see there).
+// ring and keep the softmax arithmetic in registers (see there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,15 +60,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileLd = kTile + 1;         // row stride of a [kTile, kTile] tile
 constexpr float kMaskValue = -1e30f;       // the reference's causal mask value
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
@@ -80,13 +70,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [row0, row0 + kTile) of a contiguous [len, D] matrix into an f32 tile
+// Rows [row0, row0 + kTile) of a contiguous [len, D] matrix into a tile
 // with row stride D + 1; rows past len become zeros.
-template <typename T, int D>
-__device__ void load_rows(float* dst, const T* src, int row0, int len) {
+template <int D>
+__device__ void load_rows(float* dst, const float* src, int row0, int len) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = row0 + r < len ? to_f32(src[(size_t)(row0 + r) * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = row0 + r < len ? src[(size_t)(row0 + r) * D + c] : 0.f;
   }
 }
 
@@ -162,16 +152,16 @@ __device__ __forceinline__ void zero(float (&acc)[kMicro][D / kGrid]) {
     for (int j = 0; j < D / kGrid; ++j) acc[i][j] = 0.f;
 }
 
-// Rows of the micro-tile that lie before `len` go to dst ([len, D]) in T.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[kMicro][D / kGrid], int row0,
-                                           int len, int ty, int tx) {
+// Rows of the micro-tile that lie before `len` go to dst ([len, D]).
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kMicro][D / kGrid],
+                                           int row0, int len, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < kMicro; ++i) {
     const int row = row0 + ty * kMicro + i;
     if (row >= len) continue;
 #pragma unroll
-    for (int j = 0; j < D / kGrid; ++j) dst[(size_t)row * D + tx + kGrid * j] = from_f32<T>(acc[i][j]);
+    for (int j = 0; j < D / kGrid; ++j) dst[(size_t)row * D + tx + kGrid * j] = acc[i][j];
   }
 }
 
@@ -180,11 +170,11 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kTileLd + 3 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, int lq, int lk, float scale,
-                     int causal) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int lq, int lk, float scale, int causal) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kTile * (D + 1);
@@ -204,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows<T, D>(sQ, q, q0, lq);
+  load_rows<D>(sQ, q, q0, lq);
   for (int i = threadIdx.x; i < kTile; i += kThreads) {
     sM[i] = kMaskValue;
     sL[i] = 0.f;
@@ -217,8 +207,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous step is done with sK, sV and sS
-    load_rows<T, D>(sK, k, k0, lk);
-    load_rows<T, D>(sV, v, k0, lk);
+    load_rows<D>(sK, k, k0, lk);
+    load_rows<D>(sV, v, k0, lk);
     __syncthreads();
 
     float s[kMicro][kMicro];
@@ -276,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < D / kGrid; ++j) acc[i][j] /= denom;
     if (tx == 0 && q0 + r < lq) lse[q0 + r] = sM[r] + logf(denom);
   }
-  store_rows<T, D>(o, acc, q0, lq, ty, tx);
+  store_rows<D>(o, acc, q0, lq, ty, tx);
 }
 
 template <int D>
@@ -284,12 +274,12 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * kTile * (D + 1) + kTile * kTileLd + 2 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int lq, int lk,
-                        float scale, int causal) {
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int lq, int lk, float scale, int causal) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + kTile * (D + 1);
@@ -310,8 +300,8 @@ __global__ void __launch_bounds__(kThreads)
   v += bh * lk * D;
   const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
 
-  load_rows<T, D>(sQ, q, q0, lq);
-  load_rows<T, D>(sdO, dout, q0, lq);
+  load_rows<D>(sQ, q, q0, lq);
+  load_rows<D>(sdO, dout, q0, lq);
   load_vec(sLse, lse, q0, lq);
   load_vec(sDelta, delta, q0, lq);
   float acc[kMicro][D / kGrid];
@@ -322,8 +312,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_rows<T, D>(sK, k, k0, lk);
-    load_rows<T, D>(sV, v, k0, lk);
+    load_rows<D>(sK, k, k0, lk);
+    load_rows<D>(sV, v, k0, lk);
     __syncthreads();
 
     float s[kMicro][kMicro], dp[kMicro][kMicro];
@@ -344,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     accumulate_nn<D>(acc, sdS, sK, ty, tx);  // dQ += dS K
   }
-  store_rows<T, D>(dq, acc, q0, lq, ty, tx);
+  store_rows<D>(dq, acc, q0, lq, ty, tx);
 }
 
 template <int D>
@@ -352,12 +342,13 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kTileLd + 2 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                         int lq, int lk, float scale, int causal) {
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int lq, int lk,
+                         float scale, int causal) {
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + kTile * (D + 1);
@@ -380,8 +371,8 @@ __global__ void __launch_bounds__(kThreads)
   dv += bh * lk * D;
   const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
 
-  load_rows<T, D>(sK, k, k0, lk);
-  load_rows<T, D>(sV, v, k0, lk);
+  load_rows<D>(sK, k, k0, lk);
+  load_rows<D>(sV, v, k0, lk);
   float dk_acc[kMicro][D / kGrid], dv_acc[kMicro][D / kGrid];
   zero<D>(dk_acc);
   zero<D>(dv_acc);
@@ -390,8 +381,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = causal ? k0 / kTile : 0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_rows<T, D>(sQ, q, q0, lq);
-    load_rows<T, D>(sdO, dout, q0, lq);
+    load_rows<D>(sQ, q, q0, lq);
+    load_rows<D>(sdO, dout, q0, lq);
     load_vec(sLse, lse, q0, lq);
     load_vec(sDelta, delta, q0, lq);
     __syncthreads();
@@ -416,73 +407,74 @@ __global__ void __launch_bounds__(kThreads)
     accumulate_tn<D>(dv_acc, sP, sdO, ty, tx);  // dV += P^T dO
     accumulate_tn<D>(dk_acc, sdS, sQ, ty, tx);  // dK += dS^T Q
   }
-  store_rows<T, D>(dk, dk_acc, k0, lk, ty, tx);
-  store_rows<T, D>(dv, dv_acc, k0, lk, ty, tx);
+  store_rows<D>(dk, dk_acc, k0, lk, ty, tx);
+  store_rows<D>(dv, dv_acc, k0, lk, ty, tx);
 }
 
 int tiles(int len) { return (len + kTile - 1) / kTile; }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                        int lq, int lk, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<dim3(tiles(lq), bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), lq, lk, scale, causal);
+  flash_fwd_kernel<D><<<dim3(tiles(lq), bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), lq, lk, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dq, int bh, int lq, int lk,
                           float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<dim3(tiles(lq), bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), lq, lk, scale, causal);
+  flash_bwd_dq_kernel<D><<<dim3(tiles(lq), bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), lq, lk, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int bh, int lq,
                            int lk, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D><<<dim3(tiles(lk), bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), lq, lk, scale,
-      causal);
+  flash_bwd_dkv_kernel<D><<<dim3(tiles(lk), bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), lq, lk,
+      scale, causal);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores: the forward (K1) and dK/dV (K3) for bf16 inputs.
+// bf16 on tensor cores: the forward (K1), dQ (K2) and dK/dV (K3) for bf16
+// inputs.
 //
-// Both are bound by their products at the training shape (the forward by
-// bytes only if the products ran at the tensor cores' peak), so the design
-// feeds the tensor cores and keeps everything else out of their way. A
-// thread block is consumer warpgroups (K1: two; K3: two at D = 64, one at
-// D = 128) and one producer warp. The producer's first lane asks the TMA
-// for every tile the block reads, into a ring of two stages; each stage
+// All three are bound by their products at the training shape (the forward
+// by bytes only if the products ran at the tensor cores' peak), so the
+// design feeds the tensor cores and keeps everything else out of their way.
+// A thread block is consumer warpgroups (K1 and K2: two; K3: two at D = 64,
+// one at D = 128) and one producer warp. The producer's first lane asks the
+// TMA for every tile the block reads, into a ring of two stages; each stage
 // has a "full" mbarrier (the TMA completes it) and an "empty" one (the
 // consumer threads arrive when their products have read it), so the next
 // tile is in flight while this one computes. The consumers multiply with
 // wgmma, f32 sums in registers, and run the softmax arithmetic on those
-// registers. A product whose left operand is a probability tile takes it
-// from registers, rounded to bf16 (a TPU's default-precision f32 matmul is
-// one bf16 pass too); everything else stays f32. Exponentials are
-// ex2.approx with the scale folded into log2 units.
+// registers. A product whose left operand is a probability tile (P) or a
+// score gradient (dS) takes it from registers, rounded to bf16 (a TPU's
+// default-precision f32 matmul is one bf16 pass too); everything else stays
+// f32. Exponentials are ex2.approx with the scale folded into log2 units.
 
 namespace sm90 {
 
@@ -491,6 +483,51 @@ constexpr int kConsumers = 256;                // two warpgroups
 constexpr int kBlockThreads = kConsumers + 32;  // and the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// d = A B^T over the head dim D for one warpgroup (d is overwritten). A and
+// B are K-major SW128 tiles cut into D / 64 panels of a_rows and b_rows
+// rows; the warpgroup's 64 rows of A start at a.
+template <int N, int D>
+__device__ __forceinline__ void mma_over_d(float (&d)[N / 2], const bf16* a, int a_rows,
+                                           const bf16* b, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int panel = kk / 4, off = (kk % 4) * 16;
+    hopper::Wgmma<N>::ss(d, hopper::desc_sw128(a + panel * a_rows * 64 + off),
+                         hopper::desc_sw128(b + panel * b_rows * 64 + off), kk > 0);
+  }
+}
+
+// d += A B for one warpgroup: A is J k16 steps of bf16 registers (as
+// fragment_to_a packs them); B is an MN-major SW128 tile of 16 J rows, cut
+// into D / 64 panels of 64 columns.
+template <int D, int J>
+__device__ __forceinline__ void mma_accumulate(float (&d)[D / 2], const uint32_t (&a)[J][4],
+                                               const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < J; ++kk)
+    hopper::Wgmma<D>::rs(d, a[kk], hopper::desc_sw128(b + kk * 16 * 64, J * 16 * 128), 1);
+}
+
+// The producer's K/V stream of K1 and K2: tiles t = 0 .. ntiles - 1 of BN
+// rows of one bh into the two-stage ring. A stage is refilled once the
+// consumers have released (empty) the tile it held.
+template <int D, int BN>
+__device__ __forceinline__ void produce_kv(bf16 (&k)[2][BN * D], bf16 (&v)[2][BN * D],
+                                           uint64_t (&full)[2], uint64_t (&empty)[2],
+                                           const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                           int ntiles, int bh) {
+  using namespace hopper;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t & 1;
+    if (t >= 2) mbar_wait(&empty[s], ((t >> 1) - 1) & 1);
+    mbar_expect_tx(&full[s], 2 * BN * D * sizeof(bf16));
+    for (int p = 0; p < D / 64; ++p) {
+      tma_load_3d(k[s] + p * BN * 64, tm_k, &full[s], p * 64, t * BN, bh);
+      tma_load_3d(v[s] + p * BN * 64, tm_v, &full[s], p * 64, t * BN, bh);
+    }
+  }
+}
 
 // K1, for _flash_kernel. Block: 128 q rows (64 a warpgroup) of one bh;
 // loops over k tiles of BN rows up to the diagonal. Per tile, a warpgroup computes S = Q K^T
@@ -537,15 +574,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       mbar_expect_tx(&sm.q_full, kFwdRows * D * sizeof(bf16));
       for (int p = 0; p < kPanels; ++p)
         tma_load_3d(sm.q + p * kFwdRows * 64, &tm_q, &sm.q_full, p * 64, q0, bh);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t & 1;
-        if (t >= 2) mbar_wait(&sm.empty[s], ((t >> 1) - 1) & 1);
-        mbar_expect_tx(&sm.full[s], 2 * BN * D * sizeof(bf16));
-        for (int p = 0; p < kPanels; ++p) {
-          tma_load_3d(sm.k[s] + p * BN * 64, &tm_k, &sm.full[s], p * 64, t * BN, bh);
-          tma_load_3d(sm.v[s] + p * BN * 64, &tm_v, &sm.full[s], p * 64, t * BN, bh);
-        }
-      }
+      produce_kv<D, BN>(sm.k, sm.v, sm.full, sm.empty, &tm_k, &tm_v, ntiles, bh);
     }
     return;
   }
@@ -568,12 +597,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
     float sc[BN / 2];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int panel = kk / 4, off = (kk % 4) * 16;
-      Wgmma<BN>::ss(sc, desc_sw128(q_wg + panel * kFwdRows * 64 + off),
-                    desc_sw128(sm.k[s] + panel * BN * 64 + off), kk > 0);
-    }
+    mma_over_d<BN, D>(sc, q_wg, kFwdRows, sm.k[s], BN);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -611,9 +635,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     uint32_t pa[BN / 16][4];
     fragment_to_a<BN / 16>(pa, sc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      Wgmma<D>::rs(acc, pa[kk], desc_sw128(sm.v[s] + kk * 16 * 64, BN * 128), 1);
+    mma_accumulate<D>(acc, pa, sm.v[s]);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -632,6 +654,135 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     for (int j = 0; j < D / 8; ++j)
       out[j * 4] = pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
     if (lane % 4 == 0) lse[(size_t)bh * lq + r] = m[h] * kLn2 + logf(denom);
+  }
+}
+
+// K2, for _bwd_dq_kernel. Bound by its three products (19.4 GFLOP at the
+// training shape: 0.0196 ms at 989 TFLOP/s; its 63.7 MB of traffic take
+// 0.0190 ms at 3.35 TB/s, so it needs the tensor cores and the memory both
+// near their peaks). K1's skeleton with K3's arithmetic. Block: 128 q rows (64 a
+// warpgroup) of one bh; Q and dO for them arrive once by TMA and stay
+// resident; the producer streams K and V tiles of BN rows through the ring
+// up to the diagonal. Per tile, a warpgroup computes
+//   S = Q K^T, dP = dO V^T               (wgmma, shared memory, K-major; one
+//                                         commit group)
+//   P = exp(S scale - lse[row])          (registers; 0 where masked, past lk
+//                                         or at rows >= lq)
+//   dS = P (dP - delta[row]) scale       (registers)
+//   dQ += dS K                           (A = dS as bf16 registers, K read
+//                                         MN-major)
+// so no tile goes through shared memory: the S and dP fragments are the
+// A layout of the last product. lse and delta are per row, so each thread
+// keeps its two rows' values in registers from the start. P is absolute
+// (relative to lse), so where dS rounds to bf16 does not depend on BN.
+constexpr int kDqRows = 128;
+
+template <int D, int BN>
+struct DqSmem {
+  alignas(1024) bf16 q[kDqRows * D];     // D / 64 panels of [kDqRows, 64]
+  alignas(1024) bf16 dout[kDqRows * D];
+  alignas(1024) bf16 k[2][BN * D];       // per stage: D / 64 panels of [BN, 64]
+  alignas(1024) bf16 v[2][BN * D];
+  uint64_t qdo_full, full[2], empty[2];
+};
+
+template <int D, int BN>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              bf16* __restrict__ dq, int lq, int lk, float scale, int causal) {
+  using namespace hopper;
+  auto& sm = aligned_smem<DqSmem<D, BN>>();
+  constexpr int kPanels = D / 64;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int nk = (lk + BN - 1) / BN;
+  const int ntiles = causal ? min(nk, (q0 + kDqRows - 1) / BN + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qdo_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&sm.qdo_full, 2 * kDqRows * D * sizeof(bf16));
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(sm.q + p * kDqRows * 64, &tm_q, &sm.qdo_full, p * 64, q0, bh);
+        tma_load_3d(sm.dout + p * kDqRows * 64, &tm_do, &sm.qdo_full, p * 64, q0, bh);
+      }
+      produce_kv<D, BN>(sm.k, sm.v, sm.full, sm.empty, &tm_k, &tm_v, ntiles, bh);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int row = q0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and row + 8
+  const int wg_last = q0 + wg * 64 + 63;  // a causal tile starting past it is all masked
+  const float c2 = scale * kLog2e;
+  const bf16* q_wg = sm.q + wg * 64 * 64;
+  const bf16* do_wg = sm.dout + wg * 64 * 64;
+
+  float lse2[2], del[2];  // the two rows' lse (log2 units) and delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    lse2[h] = r < lq ? lse[(size_t)bh * lq + r] * kLog2e : 0.f;
+    del[h] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(&sm.qdo_full, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t & 1;
+    mbar_wait(&sm.full[s], (t >> 1) & 1);
+    if (!(causal && t * BN > wg_last)) {
+      float sc[BN / 2], ds[BN / 2];
+      wgmma_fence();
+      mma_over_d<BN, D>(sc, q_wg, kDqRows, sm.k[s], BN);
+      mma_over_d<BN, D>(ds, do_wg, kDqRows, sm.v[s], BN);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(ds);
+
+      const int col0 = t * BN + (lane % 4) * 2;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int h = (i % 4) / 2, r = row + 8 * h, c = col0 + (i / 4) * 8 + (i % 2);
+        const bool live = r < lq && c < lk && !(causal && c > r);
+        const float p = live ? ex2(sc[i] * c2 - lse2[h]) : 0.f;
+        ds[i] = p * (ds[i] - del[h]) * scale;  // ds held dP until here
+      }
+      uint32_t dsa[BN / 16][4];
+      fragment_to_a<BN / 16>(dsa, ds);
+      wgmma_fence();
+      mma_accumulate<D>(acc, dsa, sm.k[s]);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= lq) continue;
+    uint32_t* out = reinterpret_cast<uint32_t*>(dq + ((size_t)bh * lq + r) * D + (lane % 4) * 2);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      out[j * 4] = pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
@@ -723,18 +874,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 
     float st[kDkvQ / 2], dpt[kDkvQ / 2];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int panel = kk / 4, off = (kk % 4) * 16;
-      Wgmma<kDkvQ>::ss(st, desc_sw128(k_wg + panel * kRows * 64 + off),
-                       desc_sw128(sm.q[s] + panel * kDkvQ * 64 + off), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int panel = kk / 4, off = (kk % 4) * 16;
-      Wgmma<kDkvQ>::ss(dpt, desc_sw128(v_wg + panel * kRows * 64 + off),
-                       desc_sw128(sm.dout[s] + panel * kDkvQ * 64 + off), kk > 0);
-    }
+    mma_over_d<kDkvQ, D>(st, k_wg, kRows, sm.q[s], kDkvQ);
+    mma_over_d<kDkvQ, D>(dpt, v_wg, kRows, sm.dout[s], kDkvQ);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(st);
@@ -759,12 +900,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     fragment_to_a<kDkvQ / 16>(pa, st);
     fragment_to_a<kDkvQ / 16>(dsa, dpt);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kDkvQ / 16; ++kk)
-      Wgmma<D>::rs(dv_acc, pa[kk], desc_sw128(sm.dout[s] + kk * 16 * 64, kDkvQ * 128), 1);
-#pragma unroll
-    for (int kk = 0; kk < kDkvQ / 16; ++kk)
-      Wgmma<D>::rs(dk_acc, dsa[kk], desc_sw128(sm.q[s] + kk * 16 * 64, kDkvQ * 128), 1);
+    mma_accumulate<D>(dv_acc, pa, sm.dout[s]);
+    mma_accumulate<D>(dk_acc, dsa, sm.q[s]);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dk_acc);
@@ -816,6 +953,32 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
+// K2's k-tile width, at both head dims: dQ, S and dP hold D / 2 + BN f32
+// registers a thread, so BN = 128 at D = 64 would start near 200.
+constexpr int kDqBlockK = 64;
+
+template <int D>
+cudaError_t launch_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dq, int bh, int lq,
+                               int lk, float scale, int causal, cudaStream_t stream) {
+  constexpr int BN = kDqBlockK;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = hopper::map_rows_bf16(&tq, q, bh, lq, D, kDqRows)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tdo, dout, bh, lq, D, kDqRows)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tk, k, bh, lk, D, BN)) != cudaSuccess) return err;
+  if ((err = hopper::map_rows_bf16(&tv, v, bh, lk, D, BN)) != cudaSuccess) return err;
+  constexpr size_t smem = sizeof(DqSmem<D, BN>) + 1024;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<D, BN><<<dim3((lq + kDqRows - 1) / kDqRows, bh), kBlockThreads, smem,
+                                     stream>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                                               static_cast<const float*>(delta),
+                                               static_cast<bf16*>(dq), lq, lk, scale, causal);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
@@ -844,22 +1007,17 @@ cudaError_t launch_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
 
 }  // namespace sm90
 
-template <int D, typename... Args>
-cudaError_t launch_bwd_dq_bf16(Args... args) {
-  return launch_bwd_dq<__nv_bfloat16, D>(args...);
-}
-
 }  // namespace
 
 // dtype codes: 0 = f32, 1 = bf16. f32 runs the f32-FMA kernels; bf16 runs
-// the tensor-core forward and dK/dV and the f32-FMA dQ. Each entry point
+// the tensor-core kernels of namespace sm90. Each entry point
 // returns the cudaError_t of the launch (0 on success); an unsupported
 // dtype or head dimension returns cudaErrorInvalidValue and launches
 // nothing.
 #define RTT_DISPATCH(DTYPE, HEAD_DIM, F32_LAUNCH, BF16_LAUNCH, ...)               \
   switch ((DTYPE) * 1000 + (HEAD_DIM)) {                                        \
-    case 0 * 1000 + 64: return F32_LAUNCH<float, 64>(__VA_ARGS__);              \
-    case 0 * 1000 + 128: return F32_LAUNCH<float, 128>(__VA_ARGS__);            \
+    case 0 * 1000 + 64: return F32_LAUNCH<64>(__VA_ARGS__);                     \
+    case 0 * 1000 + 128: return F32_LAUNCH<128>(__VA_ARGS__);                   \
     case 1 * 1000 + 64: return BF16_LAUNCH<64>(__VA_ARGS__);                    \
     case 1 * 1000 + 128: return BF16_LAUNCH<128>(__VA_ARGS__);                  \
     default: return cudaErrorInvalidValue;                                      \
@@ -876,8 +1034,8 @@ extern "C" int rtt_flash_bwd_dq(int dtype, int head_dim, const void* q, const vo
                                 const void* v, const void* dout, const void* lse,
                                 const void* delta, void* dq, int bh, int lq, int lk, float scale,
                                 int causal, void* stream) {
-  RTT_DISPATCH(dtype, head_dim, launch_bwd_dq, launch_bwd_dq_bf16, q, k, v, dout, lse, delta, dq,
-               bh, lq, lk, scale, causal, static_cast<cudaStream_t>(stream));
+  RTT_DISPATCH(dtype, head_dim, launch_bwd_dq, sm90::launch_bwd_dq_bf16, q, k, v, dout, lse,
+               delta, dq, bh, lq, lk, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rtt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,

@@ -1,8 +1,8 @@
 """Flash attention on Hopper (port of ``ray_tpu/ops/flash_attention.py``).
 
 Hand-written CUDA kernels in ``csrc/flash_attention.cu`` replace the three
-Pallas TPU kernels. bf16 forward and dK/dV run on the tensor cores (wgmma
-fed by TMA); f32, and the bf16 dQ, run f32 FMAs on the CUDA cores:
+Pallas TPU kernels. For bf16 all three run on the tensor cores (wgmma fed
+by TMA); f32 runs f32 FMAs on the CUDA cores:
 
 - ``FWD`` (``rtt_flash_fwd``) for ``_flash_kernel``: blockwise attention
   with an online softmax; writes O and the per-row logsumexp;
@@ -13,9 +13,9 @@ fed by TMA); f32, and the bf16 dQ, run f32 FMAs on the CUDA cores:
 
 Each has a plain PyTorch version here (``*_plain``) that repeats the
 kernel's arithmetic tile by tile in f32, rounding where the kernel rounds:
-for bf16 inputs the forward and dK/dV round each probability tile (and
-dK/dV each dS tile) to bf16 before its product, as the tensor-core kernels
-feed them to wgmma. A wrapper (``flash_forward``,
+for bf16 inputs the forward and dK/dV round each probability tile, and dQ
+and dK/dV each dS tile, to bf16 before its product, as the tensor-core
+kernels feed them to wgmma. A wrapper (``flash_forward``,
 ``flash_backward_dq``, ``flash_backward_dkv``) launches the kernel for a
 CUDA tensor and takes the plain version only for a CPU tensor. The
 ``[B, L, H, D]`` <-> ``[BH, L, D]`` transposes stay torch copies
@@ -37,7 +37,7 @@ from ray_tpu_torch.ops.attention import mha_reference
 _NEG_INF = -1e30
 
 # The kernels' tiles, in rows, where they shape a plain version's loop.
-F32_TILE = 64          # f32-FMA kernels (f32 K1-K3, bf16 K2): q and k tiles
+F32_TILE = 64          # f32-FMA kernels (f32 K1-K3): q and k tiles
 FWD_BF16_BLOCK_K = {64: 128, 128: 64}   # bf16 K1: k tile, by head dim
 DKV_BF16_BLOCK_Q = 64  # bf16 K3: q rows of a step
 HEAD_DIMS = (64, 128)
@@ -135,7 +135,11 @@ def flash_forward_plain(q3, k3, v3, *, scale: float, causal: bool,
 
 def flash_backward_dq_plain(q3, k3, v3, do3, lse, delta, *, scale: float,
                             causal: bool, tile: int = F32_TILE):
-    """dQ [BH, Lq, D] in q3's dtype as ``BWD_DQ`` computes it."""
+    """dQ [BH, Lq, D] in q3's dtype as ``BWD_DQ`` computes it: for each k
+    tile, every q tile on or below the diagonal recomputes P from the
+    logsumexp and adds dS K. For bf16, dS is rounded to bf16 before that
+    product. P is relative to the logsumexp, not to a running max, so
+    ``tile`` only orders the sum."""
     lq, lk = q3.shape[1], k3.shape[1]
     q, k, v, do = (_tiles(x, tile) for x in (q3, k3, v3, do3))
     lse_t, delta_t = _tiles(lse, tile), _tiles(delta, tile)
@@ -152,7 +156,8 @@ def flash_backward_dq_plain(q3, k3, v3, do3, lse, delta, *, scale: float,
         p = p.masked_fill(cols >= lk, 0.0)
         dp = torch.einsum("bitd,bsd->bits", do[:, lo:], v[:, j])
         ds = p * (dp - delta_t[:, lo:, :, None]) * scale
-        dq[:, lo:] += torch.einsum("bits,bsd->bitd", ds, k[:, j])
+        dq[:, lo:] += torch.einsum("bits,bsd->bitd", _operand(ds, q3.dtype),
+                                   k[:, j])
     return _untile(dq, lq).to(q3.dtype)
 
 

@@ -190,8 +190,8 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 # bf16: the port's plain versions repeat the tensor-core kernels' rounding
-# (each probability tile, and in dK/dV each dS tile, rounded to bf16 before
-# its product; the forward in the kernel's k tiles). The JAX kernels in
+# (each probability tile, and in dQ and dK/dV each dS tile, rounded to bf16
+# before its product; the forward in the kernel's k tiles). The JAX kernels in
 # interpret mode compute in f32 from the same bf16 inputs. A rounded P is
 # off by at most 2^-9 relative, which moves a sum of p*x by at most 2^-9 of
 # sum |p*x|, and both sides round their outputs to bf16 (2^-9 relative):
@@ -239,8 +239,8 @@ def test_bf16_forward_plain_matches_jax(causal, d, l, block):
 
 @pytest.mark.parametrize("causal,d,l,block", _BF16_CASES)
 def test_bf16_backward_plain_matches_jax(causal, d, l, block):
-    """dK/dV (rounded P and dS) and dQ (f32 throughout, as its kernel), fed
-    the JAX forward's lse and delta."""
+    """dK/dV (rounded P and dS) and dQ (rounded dS), as their kernels
+    compute them, fed the JAX forward's lse and delta."""
     q, k, v, do = _bf16_three(21, l, d)
     scale = d ** -0.5
     kw = dict(scale=scale, causal=causal, block_q=block, block_k=block,
@@ -270,3 +270,20 @@ def test_bf16_plain_rounds_where_the_kernels_do():
     assert tfa.FWD_BF16_BLOCK_K[64] == 128
     assert not torch.equal(o128, o64)
     assert not torch.equal(o128, o32.bfloat16())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_dq_rounds_ds(causal):
+    """The bf16 dQ rounds dS to bf16 before dS K, as its kernel does: it
+    differs from the same arithmetic unrounded, and stays within the bf16
+    tolerance of it."""
+    q, k, v, do = (_t(x) for x in _bf16_three(23, 256, 64))
+    kw = dict(scale=0.125, causal=causal)
+    o, lse = tfa.flash_forward_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = tfa.flash_backward_dq_plain(q, k, v, do, lse, delta, **kw)
+    dq32 = tfa.flash_backward_dq_plain(q.float(), k.float(), v.float(),
+                                       do.float(), lse, delta, **kw)
+    assert dq.dtype == torch.bfloat16 and dq32.dtype == torch.float32
+    assert not torch.equal(dq, dq32.bfloat16())
+    np.testing.assert_allclose(_f32(dq), dq32.numpy(), **_BF16)
