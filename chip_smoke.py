@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build and kernel checks only
-    python3 chip_smoke.py --profile  # also write a profile of one train step
-                                     # to chiprun_out/profile_train_step.txt
+    python3 chip_smoke.py --profile  # also profile one train step and one
+                                     # decode step into chiprun_out/
+    python3 chip_smoke.py --seed N   # the serve run's weights and prompts
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -27,6 +28,23 @@ Phases, each printed on its own line, each fatal when it fails:
 5. time: each kernel at the training shape, its plain version, and the
    PyTorch library call of the same function where there is one (SDPA; a
    yardstick the port never calls).
+6. serve-check: llama-7b widths at two layers, f32, token-exact. The paged
+   engine (block 16, chunk 64) on 4 prompts of 37-300 tokens gives the
+   greedy tokens of an argmax rollout by ``models.forward``; the prefix
+   cache on and off gives the same tokens (two prompts share 128 tokens);
+   a contended pool that preempts gives a solo engine's sampled streams;
+   threefry on the card gives the CPU's bits and jax.random's.
+7. serve: the serving path's main run. llama-7b at full width and depth,
+   bf16 compute, the block weights cast once; the paged engine with 8
+   slots, max_len 2048, block 16, chunk 512, prefix cache on. 16 requests
+   of 128-1024 prompt tokens (4 share a 256-token prefix), 128 new tokens
+   each, all submitted at once: once to a greedy engine and once to a
+   sampled one (temperature 0.8, top_k 50; the engine's temperature is
+   per engine, as the reference's). Checks each prompt's chunked-prefill
+   first-token logits against ``models.forward``, every budget met, every
+   KV block returned; prints TTFT, decode and prefill rates, decode-step
+   time, prefix-cache hits and peak memory. ``--profile`` also writes a
+   profile of one decode step to chiprun_out/profile_decode_step.txt.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -412,12 +430,406 @@ def profile_step(state, step, batch, path, step_ms):
         f"{flash:.2f} ms ({flash / busy:.4f} of busy); table in {path}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the serving path (models/generate.py, serve/llm/engine.py).
+
+# jax.random's output for these keys (jax 0.9.0: threefry2x32, partitionable
+# bits), computed with jax beside the JAX package; the card's machine has no
+# jax. request_key(s, c) is generate._request_key: fold_in(fold_in(key(0),
+# s), c).
+THREEFRY_GOLDEN = {
+    "fold_in(key(0), 42)": [2814562516, 111458285],
+    "request_key(1234, 567)": [1107522705, 3439138719],
+    "split(key(7), 4)": [3625411723, 1954958720, 195045567, 4062205631,
+                         966301609, 1948237315, 276534068, 1641862660],
+    "bits(request_key(3, 100), (8,))": [
+        3212792654, 426997502, 673008669, 990225976, 3630513346,
+        2515621064, 686453317, 2203328511],
+    # categorical(request_key(9, 300), linspace(-2, 2, 64).reshape(2, 32))
+    "categorical": [8, 31],
+}
+SERVE_CHECK_LENS = (37, 94, 171, 300)   # prompts 3 and 4 share 128 tokens
+SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX = 16, 128, 256
+SERVE_SHARED = (0, 5, 10, 15)           # requests that share the prefix
+
+
+def threefry_outputs(device):
+    """THREEFRY_GOLDEN's functions computed by the port on ``device``."""
+    from ray_tpu_torch import random as rnd
+    from ray_tpu_torch.models.generate import _request_key
+
+    def rk(s, c):
+        return _request_key(s, c, device=device)
+
+    logits = torch.linspace(-2, 2, 64, device=device).reshape(2, 32)
+    return {
+        "fold_in(key(0), 42)": rnd.fold_in(rnd.key(0, device=device), 42),
+        "request_key(1234, 567)": rk(1234, 567),
+        "split(key(7), 4)": rnd.split(rnd.key(7, device=device), 4),
+        "bits(request_key(3, 100), (8,))": rnd.random_bits(rk(3, 100), (8,)),
+        "categorical": rnd.categorical(rk(9, 300), logits),
+    }
+
+
+def check_threefry():
+    """The port's threefry on the card: jax.random's golden words, and the
+    CPU's bits for a batch of decode-step sized draws."""
+    from ray_tpu_torch import random as rnd
+    from ray_tpu_torch.models.generate import _request_key
+
+    got, cpu = ({k: v.flatten().tolist()
+                 for k, v in threefry_outputs(dev).items()}
+                for dev in ("cuda", "cpu"))
+    for name, want in THREEFRY_GOLDEN.items():
+        if got[name] != want or cpu[name] != want:
+            raise AssertionError(f"threefry {name}: cuda {got[name]}, cpu "
+                                 f"{cpu[name]}, jax.random {want}")
+    seeds, ctrs = torch.arange(8) * 7919, torch.arange(8) + 1000
+    bits = [rnd.random_bits(_request_key(seeds.to(d), ctrs.to(d)), (32000,))
+            for d in ("cpu", "cuda")]
+    if not torch.equal(bits[0], bits[1].cpu()):
+        raise AssertionError("threefry: random_bits differ on cuda and cpu")
+    log(f"threefry ok: {len(THREEFRY_GOLDEN)} golden jax.random outputs on "
+        f"cuda and cpu; [8, 32000] bits equal on both")
+
+
+def serve_requests(eng, prompts, n, seeds, timeout_s):
+    """Submit every prompt at once, then poll ``collect`` every 10 ms until
+    all are done (a tighter poll takes the interpreter lock from the
+    engine's thread more often). Returns (tokens per request, time to first
+    token per request in s, wall s from the first submit)."""
+    t0 = time.perf_counter()
+    rids, t_submit = [], {}
+    for p, s in zip(prompts, seeds):
+        rids.append(eng.submit(p, n, seed=s))
+        t_submit[rids[-1]] = time.perf_counter()
+    toks = {r: [] for r in rids}
+    ttft, live = {}, set(rids)
+    while live:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"serve: {len(live)} requests not done in "
+                                 f"{timeout_s} s")
+        out = eng.collect(sorted(live))
+        now = time.perf_counter()
+        for rid, o in out.items():
+            if "error" in o:
+                raise AssertionError(f"serve: request {rid}: {o['error']}")
+            if o["tokens"] and rid not in ttft:
+                ttft[rid] = now - t_submit[rid]
+            toks[rid] += o["tokens"]
+            if o["done"]:
+                live.discard(rid)
+        time.sleep(0.01)
+    return ([toks[r] for r in rids], [ttft[r] for r in rids],
+            time.perf_counter() - t0)
+
+
+def serve_check(tm, gen, se):
+    """Phase 6: llama-7b widths at two layers in f32, token-exact."""
+    base = dict(preset="llama-7b",
+                model_overrides={"n_layers": 2, "dtype": "float32"},
+                max_slots=4, max_len=320, paged_kv=True, kv_block_size=16,
+                prefill_chunk=64, max_new_tokens=16)
+    cfg = se.EngineConfig.from_dict(base).gpt_config()
+    params = gen.serving_params(tm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda"), cfg)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_CHECK_LENS]
+    prompts[3] = prompts[2][:128] + prompts[3][128:]
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+
+    def engine(replica, **kw):
+        return se.InflightBatchEngine(
+            params, cfg, se.EngineConfig.from_dict(dict(base, **kw)),
+            replica_id=replica)
+
+    n = 8
+    eng = engine("check-greedy")
+    try:
+        greedy, _, _ = serve_requests(eng, prompts, n, [0] * 4, 300)
+        if eng.stats()["kv_blocks_used"] != 0:
+            raise AssertionError(f"serve-check: blocks left {eng.stats()}")
+    finally:
+        eng.stop()
+    with torch.no_grad():
+        for p, got in zip(prompts, greedy):
+            seq = list(p)
+            for _ in range(n):
+                logits = tm.forward(params, torch.tensor([seq], device="cuda"),
+                                    fwd_cfg)
+                seq.append(int(logits[0, -1].argmax()))
+            if got != seq[len(p):]:
+                raise AssertionError(f"serve-check: engine {got} != rollout "
+                                     f"{seq[len(p):]} (prompt {len(p)})")
+
+    eng = engine("check-prefix", prefix_cache_enabled=True)
+    try:
+        cached = [eng.generate(p, n) for p in prompts]   # one at a time
+        hits = eng.stats()["prefix_cache_hit_tokens"]
+    finally:
+        eng.stop()
+    if cached != greedy or hits < 128:
+        raise AssertionError(f"serve-check: prefix cache on {cached} vs off "
+                             f"{greedy}, hit tokens {hits}")
+
+    sampled = dict(temperature=0.9, top_k=50)
+    seeds = [11, 12, 13, 14]
+    eng = engine("check-solo", **sampled)
+    try:
+        solo = [eng.generate(p, 16, seed=s) for p, s in zip(prompts, seeds)]
+    finally:
+        eng.stop()
+    # 20 usable blocks: the first three prompts take them all at admission,
+    # so the first slot to grow is preempted and resumed by recompute.
+    tight = engine("check-tight", kv_num_blocks=21, **sampled)
+    try:
+        crowd, _, _ = serve_requests(tight, prompts, 16, seeds, 300)
+        preempts = se.engine_metrics()["preempts"].value(
+            {"deployment": "llm", "replica": "check-tight"})
+        left = tight.stats()["kv_blocks_used"]
+    finally:
+        tight.stop()
+    if crowd != solo or preempts < 1 or left:
+        raise AssertionError(f"serve-check: contended {crowd} vs solo {solo}, "
+                             f"{preempts} preemptions, {left} blocks left")
+    check_threefry()
+    log(f"serve-check ok: llama-7b widths, 2 layers, f32; paged engine = "
+        f"argmax rollout on prompts {list(SERVE_CHECK_LENS)} ({n} tokens "
+        f"each); prefix cache on = off ({hits} hit tokens); contended pool "
+        f"({int(preempts)} preemptions) = solo sampled streams")
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def serve_prompts(seed, vocab):
+    """16 prompts of 128-1024 tokens from ``seed``; SERVE_SHARED start with
+    one 256-token prefix (those are at least 257 tokens long)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(128, 1025, SERVE_REQUESTS)
+    prefix = rng.integers(0, vocab, SERVE_PREFIX).tolist()
+    prompts = []
+    for i, n in enumerate(lens):
+        if i in SERVE_SHARED:
+            n = max(n, SERVE_PREFIX + 1)
+            prompts.append(prefix + rng.integers(
+                0, vocab, n - SERVE_PREFIX).tolist())
+        else:
+            prompts.append(rng.integers(0, vocab, n).tolist())
+    return prompts
+
+
+def serve_run(gen, se, params, cfg, prompts, label, **sampling):
+    """One engine of the main serving configuration over ``prompts``;
+    returns its metrics. Wraps the engine's decode and chunk-prefill calls
+    to time them: the host's time to launch a call's work, and the time to
+    its end on the device (a synchronise, which the engine does right
+    after anyway)."""
+    ec = se.EngineConfig(
+        preset="llama-7b", max_slots=8, max_len=2048, paged_kv=True,
+        kv_block_size=16, prefill_chunk=512, prefix_cache_enabled=True,
+        max_new_tokens=SERVE_NEW, **sampling)
+    steps, chunks = [], []
+
+    def timed(fn, record, count):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            t_launch = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            record.append((time.perf_counter() - t0, count(args), t_launch))
+            return out
+        return call
+
+    decode, chunk = gen.decode_step_paged, gen.prefill_chunk_paged
+    gen.decode_step_paged = timed(decode, steps, lambda a: int(a[3].sum()))
+    gen.prefill_chunk_paged = timed(chunk, chunks, lambda a: int(a[5]))
+    eng = se.InflightBatchEngine(params, cfg, ec, replica_id=label)
+    try:
+        seeds = list(range(len(prompts)))
+        toks, ttft, wall = serve_requests(eng, prompts, SERVE_NEW, seeds, 600)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+        gen.decode_step_paged, gen.prefill_chunk_paged = decode, chunk
+    short = [i for i, t in enumerate(toks) if len(t) != SERVE_NEW]
+    if short or stats["kv_blocks_used"] != 0:
+        raise AssertionError(f"serve {label}: requests {short} short of "
+                             f"{SERVE_NEW} tokens; stats {stats}")
+    if not all(0 <= x < cfg.vocab_size for t in toks for x in t):
+        raise AssertionError(f"serve {label}: token out of the vocabulary")
+    step_s = sum(t for t, _, _ in steps)
+    out = {
+        "ttft_p50_ms": percentile(ttft, 50) * 1e3,
+        "ttft_p99_ms": percentile(ttft, 99) * 1e3,
+        "decode_tokens_per_s": sum(n for _, n, _ in steps) / step_s,
+        "decode_step_ms": step_s / len(steps) * 1e3,
+        "decode_step_p50_ms": statistics.median(t for t, _, _ in steps) * 1e3,
+        "decode_launch_ms": sum(t for _, _, t in steps) / len(steps) * 1e3,
+        "decode_steps": len(steps),
+        "prefill_tokens_per_s": (sum(n for _, n, _ in chunks) /
+                                 sum(t for t, _, _ in chunks)),
+        "prefill_chunks": len(chunks),
+        "output_tokens_per_s": sum(map(len, toks)) / wall,
+        "wall_s": wall,
+        "prefix_hit_tokens": stats["prefix_cache_hit_tokens"],
+        "prefill_tokens_computed": stats["prefill_tokens_computed"],
+    }
+    log(f"serve {label}: {len(prompts)} requests x {SERVE_NEW} tokens in "
+        f"{wall:.3f} s; TTFT p50 {out['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['ttft_p99_ms']:.1f} ms; decode {out['decode_tokens_per_s']:.1f}"
+        f" tokens/s, step {out['decode_step_ms']:.3f} ms mean (p50 "
+        f"{out['decode_step_p50_ms']:.3f}, host launch "
+        f"{out['decode_launch_ms']:.3f}) over {len(steps)} steps; prefill "
+        f"{out['prefill_tokens_per_s']:.1f} tokens/s over {len(chunks)} "
+        f"chunks; output {out['output_tokens_per_s']:.1f} tokens/s; "
+        f"prefix-cache hit tokens {out['prefix_hit_tokens']} of "
+        f"{out['prefill_tokens_computed'] + out['prefix_hit_tokens']}")
+    return toks, out
+
+
+def check_first_logits(tm, gen, params, cfg, prompts, tol):
+    """Each prompt's first-token logits from chunked prefill (chunks of 512
+    against pages of a fresh pool, as the engine runs them) against
+    ``models.forward`` on the prompt; both bf16."""
+    bs, width = 16, 2048 // 16
+    pool = gen.init_paged_pool(cfg, 1 + 1024 // bs, bs, 1, width)
+    table = torch.zeros(width, dtype=torch.int64, device="cuda")
+    table[:1024 // bs] = torch.arange(1, 1 + 1024 // bs)
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    errs, agree, spread = [], 0, 0.0
+    with torch.no_grad():
+        for p in prompts:
+            kv = {"k": pool["k"], "v": pool["v"]}
+            for start in range(0, len(p), 512):
+                chunk = p[start:start + 512]
+                padded = torch.zeros(1, 512, dtype=torch.int64, device="cuda")
+                padded[0, :len(chunk)] = torch.tensor(chunk)
+                logits, kv = gen._prefill_chunk_logits(
+                    params, kv, table, padded, start, len(chunk), cfg=cfg,
+                    block_size=bs)
+            ref = tm.forward(params, torch.tensor([p], device="cuda"),
+                             fwd_cfg)[0, -1]
+            errs.append(close(f"first-token logits ({len(p)} tokens)",
+                              logits, ref, tol, 0.0))
+            agree += int(logits.argmax() == ref.argmax())
+            spread = max(spread, ref.std().item())
+    del pool
+    log(f"serve logits ok: chunked-prefill first-token logits vs "
+        f"models.forward, {len(prompts)} prompts, max |diff| "
+        f"{max(errs):.4f} (atol {tol}), median {statistics.median(errs):.4f}"
+        f", logits' std up to {spread:.4f}; argmax agrees on "
+        f"{agree}/{len(prompts)}")
+
+
+def profile_decode(gen, params, cfg, path):
+    """One decode step of the serve configuration (8 active slots, 1024
+    tokens of context each, block tables 128 pages wide) under
+    torch.profiler; the table goes to ``path``. Prints device busy against
+    the step's wall time (median of 5 unprofiled steps) and the top ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    S, bs, width, ctx = 8, 16, 2048 // 16, 1024
+    pool = gen.init_paged_pool(cfg, 1 + S * ctx // bs, bs, S, width)
+    bt = torch.zeros(S, width, dtype=torch.int64, device="cuda")
+    bt[:, :ctx // bs] = torch.arange(1, 1 + S * ctx // bs).view(S, -1)
+    tokens = torch.arange(S, device="cuda")
+    active = torch.ones(S, dtype=torch.bool, device="cuda")
+
+    def step():
+        pool["block_tables"] = bt
+        pool["lengths"] = torch.full((S,), ctx - 1, device="cuda")
+        nxt, _ = gen.decode_step_paged(params, pool, tokens, active,
+                                       tokens, cfg=cfg, block_size=bs)
+        return nxt.cpu()
+
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(walls[2:]) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=30)
+    with open(path, "w") as f:
+        f.write(table)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = union_ms([e.time_range for e in device])
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"profile decode step: device busy {busy:.3f} ms, step {wall_ms:.3f}"
+        f" ms (idle share {1 - busy / wall_ms:.4f}); top: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms" for name, ms in top) +
+        f"; table in {path}")
+
+
+# First-token logits, chunked prefill vs models.forward, both bf16 at
+# llama-7b: the tolerance and its reason are in PERF.md ("Serving").
+SERVE_LOGIT_ATOL = 0.25
+
+
+def serve(tm, gen, se, fa, seed, profile_path):
+    """Phase 7: llama-7b at full width and depth, bf16, the paged engine;
+    the flash kernels' counts are zeroed before and read after (the
+    serving path launches none of them)."""
+    cfg = se.EngineConfig(preset="llama-7b").gpt_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    master = tm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    n_params = tm.count_params(master)
+    params = gen.serving_params(master, cfg)
+    del master
+    torch.cuda.empty_cache()
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    prompts = serve_prompts(seed, cfg.vocab_size)
+
+    fa.reset_launches()
+    results = {}
+    for label, sampling in (("greedy", {}),
+                            ("sampled", dict(temperature=0.8, top_k=50))):
+        torch.cuda.reset_peak_memory_stats()
+        _, results[label] = serve_run(gen, se, params, cfg, prompts, label,
+                                      **sampling)
+        results[label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+    flash = {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
+    check_first_logits(tm, gen, params, cfg, prompts, SERVE_LOGIT_ATOL)
+    if profile_path:
+        profile_decode(gen, params, cfg, profile_path)
+    log(f"serve ok: llama-7b {n_params} params, bf16, {cfg.n_layers} "
+        f"layers; prompts {sorted(len(p) for p in prompts)}; flash kernel "
+        f"launches in the "
+        f"serve runs {flash} (its attention is plain products over the "
+        f"cache); peak memory: f32 init and cast {init_peak:.2f} GiB, "
+        f"greedy run {results['greedy']['peak_gib']:.2f} GiB, sampled run "
+        f"{results['sampled']['peak_gib']:.2f} GiB")
+    log("serve metrics: " + json.dumps(results))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels, then stop")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one train step into chiprun_out/")
+                    help="profile one train step and one decode step "
+                         "into chiprun_out/")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serve run's prompts and weights")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -507,6 +919,16 @@ def main() -> int:
             f"{t['library_ms']}, {launches[name]} launches in the train run")
     log(f"time sdpa backward (dQ, dK, dV at once, yardstick): "
         f"{sdpa_bwd:.4f} ms; train step {step_ms:.2f} ms")
+    torch.cuda.empty_cache()
+
+    from ray_tpu_torch.models import generate as gen
+    from ray_tpu_torch.serve.llm import engine as se
+
+    serve_check(tm, gen, se)
+    torch.cuda.empty_cache()
+    serve(tm, gen, se, fa, args.seed,
+          os.path.join("chiprun_out", "profile_decode_step.txt")
+          if args.profile else None)
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

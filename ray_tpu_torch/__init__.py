@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of ray_tpu's model path, for one NVIDIA Hopper GPU.
 
 The JAX package ``ray_tpu`` is the reference; module names here mirror it
-(``ops.attention``, ``ops.flash_attention``, ``models.transformer``) so each
-counterpart is easy to find. This package imports ``torch`` and numpy, never
+(``ops.attention``, ``ops.flash_attention``, ``models.transformer``,
+``models.generate``, ``serve.llm``) so each counterpart is easy to find;
+``random`` repeats the threefry ``jax.random`` the serving path samples
+with. This package imports ``torch`` and numpy, never
 ``jax`` and nothing of ``ray_tpu``. Its kernels are CUDA C++ for ``sm_90a``
 under ``csrc/``, built at first use (``ops/_kernels.py``).
 

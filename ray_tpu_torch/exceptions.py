@@ -1,0 +1,57 @@
+"""The serving engine's exception types (copies of those in
+``ray_tpu/exceptions.py``, on a local base: the port imports nothing of
+``ray_tpu``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class RayTpuError(Exception):
+    """Base class of the port's framework errors."""
+
+
+class ServeOverloadedError(RayTpuError):
+    """A serving-tier admission bound was hit (here: the engine's queue
+    cap): the request was SHED, not failed — the caller should back off
+    ``retry_after_s`` and retry."""
+
+    def __init__(self, message: str = "serving tier overloaded", *,
+                 retry_after_s: float = 1.0, reason: str = ""):
+        self.retry_after_s = float(retry_after_s)
+        self.reason = reason
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",),
+                {"retry_after_s": self.retry_after_s, "reason": self.reason})
+
+
+class KVCacheExhaustedError(RayTpuError):
+    """The paged KV block pool (or the engine's KV byte budget) cannot
+    hold this sequence: prompt + generation budget needs more blocks than
+    the whole pool owns. Raised at ADMISSION — a clean, typed failure
+    instead of an out-of-memory error mid-generation."""
+
+
+class EngineFailedError(RayTpuError):
+    """The serving engine failed (a scheduler-step error) or was stopped
+    with this request still in flight.
+
+    NOT terminal for the request: ``descriptor`` is a durable resume
+    descriptor — ``{prompt, generated, seed, position, max_tokens}`` — and
+    resubmitting it to a healthy engine continues generation
+    bit-identically from position ``len(prompt) + len(generated)``
+    (per-request ``fold_in(seed, position)`` sampling keys make the token
+    stream a pure function of the sequence so far). ``reason`` is
+    ``"step_failure"`` or ``"engine_stopped"``."""
+
+    def __init__(self, message: str = "engine failed", *,
+                 descriptor: Optional[dict] = None, reason: str = ""):
+        self.descriptor = dict(descriptor or {})
+        self.reason = reason
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",),
+                {"descriptor": self.descriptor, "reason": self.reason})

@@ -1,0 +1,68 @@
+"""The port stands alone: no module of ray_tpu_torch, nor chip_smoke.py,
+imports jax or anything of the JAX package ray_tpu (the card's machine has
+neither), and its entry points do not drift to the CPU without a GPU."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from ray_tpu_torch.serve.llm.engine import (
+    EngineConfig, InflightBatchEngine, _build_model,
+)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "ray_tpu")
+
+
+def _imports(path: pathlib.Path):
+    """(line, module) of every import in ``path``, at any depth."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_sources_found():
+    names = {p.name for p in SOURCES}
+    assert {"engine.py", "generate.py", "random.py", "paged.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_reference_import(path):
+    bad = [f"{path.relative_to(ROOT)}:{line} imports {mod}"
+           for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_scan_catches_forbidden_imports(tmp_path):
+    """The scan itself: each forbidden form is caught, the port's own
+    package name is not."""
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom ray_tpu.models import x\n"
+                   "import ray_tpu\nfrom ray_tpu_torch import models\n"
+                   "def f():\n    from jax import lax\n")
+    found = [mod for _, mod in _imports(src) if _forbidden(mod)]
+    assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax"]
+
+
+def test_engine_and_build_model_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ec = EngineConfig(preset="tiny",
+                      model_overrides=(("dtype", "float32"),))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _build_model(ec)
+    cfg, params = _build_model(ec, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InflightBatchEngine(params, cfg, ec)
