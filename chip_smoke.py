@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build and kernel checks only
-    python3 chip_smoke.py --profile  # also profile one train step and one
-                                     # decode step into chiprun_out/
+    python3 chip_smoke.py --profile  # also profile one train step of each
+                                     # model and one decode step into
+                                     # chiprun_out/
     python3 chip_smoke.py --seed N   # the serve run's weights and prompts
 
 Phases, each printed on its own line, each fatal when it fails:
@@ -28,13 +29,30 @@ Phases, each printed on its own line, each fatal when it fails:
 5. time: each kernel at the training shape, its plain version, and the
    PyTorch library call of the same function where there is one (SDPA; a
    yardstick the port never calls).
-6. serve-check: llama-7b widths at two layers, f32, token-exact. The paged
+6. moe-train: gpt2-125m-moe8 (``GPTConfig.preset("gpt2-125m",
+   moe_experts=8, moe_capacity_factor=1.25, max_seq=1024,
+   flash_attention=True)``, Switch top-1) at full width and depth, as
+   phase 4 otherwise. The first loss against the one-hot plain MoE FFN on
+   the same params and batch; the flash launches per step; prints step
+   time, MFU over the 124,549,632 active params, peak memory and the share
+   of tokens dropped at the first step.
+7. remat: phase 4's gpt2-125m from one init and one batch under each remat
+   policy ("full", "matmuls", "dots"): the same first loss and gradient
+   norm, the same flash launches, and the kept tensors' memory (1.21 GB
+   over 12 layers) on top of "full"'s peak.
+8. moe-serve: the paged engine on gpt2-125m-moe8, bf16, 8 slots, max_len
+   1024, block 16, chunk 256, prefix cache on; 16 greedy requests of
+   64-512 prompt tokens from ``--seed``, 64 new tokens each, submitted at
+   once. Then one decode step with half the slots idle against the same
+   step with the one-hot plain MoE FFN: the same tokens dropped (idle
+   slots take expert capacity, as in the reference), the same logits.
+9. serve-check: llama-7b widths at two layers, f32, token-exact. The paged
    engine (block 16, chunk 64) on 4 prompts of 37-300 tokens gives the
    greedy tokens of an argmax rollout by ``models.forward``; the prefix
    cache on and off gives the same tokens (two prompts share 128 tokens);
    a contended pool that preempts gives a solo engine's sampled streams;
    threefry on the card gives the CPU's bits and jax.random's.
-7. serve: the serving path's main run. llama-7b at full width and depth,
+10. serve: the serving path's main run. llama-7b at full width and depth,
    bf16 compute, the block weights cast once; the paged engine with 8
    slots, max_len 2048, block 16, chunk 512, prefix cache on. 16 requests
    of 128-1024 prompt tokens (4 share a 256-token prefix), 128 new tokens
@@ -54,6 +72,7 @@ script exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -64,6 +83,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -333,64 +353,338 @@ def check_forward(tm):
         f"attention max |diff| {err:.3e} (atol 2e-4)")
 
 
+def train_batch(vocab: int):
+    """The seeded batch of the training phases: [B, L] inputs and targets."""
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab, (B, L + 1))).cuda()
+    return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def new_state(tm, cfg):
+    """Fresh params from seed 0 on the card and AdamW(3e-4, wd 0.1), as
+    ``bench.py::measure``."""
+    opt = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.1)
+    return tm.make_train_state(
+        cfg, opt, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+
+
+class Run(NamedTuple):
+    losses: list
+    grad_norm: float    # of the first step
+    times: list         # seconds per step
+    launches: dict      # flash kernel -> launches over the run
+    peak: int           # bytes allocated at most during the steps
+
+    @property
+    def step_ms(self) -> float:
+        return statistics.median(self.times[WARMUP_STEPS:]) * 1e3
+
+
+def run_steps(fa, state, step, batch, label, n_layers,
+              first=contextlib.nullcontext):
+    """WARMUP_STEPS + TIMED_STEPS steps on one batch, step 0 inside
+    ``first()``, the flash kernels' counts zeroed before and read after.
+    Fails unless the losses are finite and fall and each step launched the
+    flash forward twice per layer (the forward, then remat's recompute)
+    and dQ and dK/dV once each."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, times, gnorm = [], [], None
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        with first() if i == 0 else contextlib.nullcontext():
+            state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())   # waits for the step
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            gnorm = metrics["grad_norm"].item()
+    launches = {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall {losses}")
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers}
+    for name, per_step in want.items():
+        if launches[name] != per_step * steps:
+            raise AssertionError(f"{label}: {name} launched {launches[name]}"
+                                 f" times in {steps} steps, want "
+                                 f"{per_step} per step")
+    return Run(losses, gnorm, times, launches,
+               torch.cuda.max_memory_allocated())
+
+
+def log_run(label, run, n_params, tokens_per_param=6):
+    """The step time, tokens/s, MFU (``tokens_per_param`` x params FLOPs a
+    token at 989 TFLOP/s) and peak memory of ``run``."""
+    tokens_per_s = B * L / (run.step_ms / 1e3)
+    mfu = tokens_per_s * tokens_per_param * n_params / PEAK_FLOPS[
+        torch.bfloat16]
+    log(f"{label} step_ms {run.step_ms:.2f} (median of {TIMED_STEPS}; all "
+        f"{[round(t * 1e3, 2) for t in run.times]}), tokens/s "
+        f"{tokens_per_s:.1f}, MFU {mfu:.4f} of 989 TFLOP/s over {n_params}"
+        f" params, peak memory {run.peak / 2**30:.2f} GiB")
+
+
 def train(tm, fa):
     """The main path: returns the launch counts of its steps and the step
     time."""
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
-    opt = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.1)
-    state = tm.make_train_state(
-        cfg, opt, generator=torch.Generator(device="cuda").manual_seed(0),
-        device="cuda")
+    state = new_state(tm, cfg)
     step = tm.make_train_step(cfg)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, L + 1))).cuda()
-    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    batch = train_batch(cfg.vocab_size)
     n_params = tm.count_params(state.params)
     with torch.no_grad():
         ref_loss = tm.loss_fn(state.params, batch, dataclasses.replace(
             cfg, flash_attention=False)).item()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    fa.reset_launches()
-    losses, times = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"].item())   # waits for the step
-        times.append(time.perf_counter() - t0)
-    launches = {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
-
-    steps = WARMUP_STEPS + TIMED_STEPS
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall {losses}")
+    run = run_steps(fa, state, step, batch, "train", cfg.n_layers)
     # bf16 attention probabilities (reference) vs f32 (kernels): the first
     # loss of ~10.9 agrees to 2e-2.
-    if abs(losses[0] - ref_loss) > 2e-2:
-        raise AssertionError(f"train: first loss {losses[0]} vs reference "
-                             f"attention {ref_loss}")
-    # Per step: the forward in each of 12 layers, again in remat's
-    # recompute, then dQ and dK/dV once each.
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers}
-    for name, per_step in want.items():
-        if launches[name] != per_step * steps:
-            raise AssertionError(f"train: {name} launched {launches[name]} "
-                                 f"times in {steps} steps, want "
-                                 f"{per_step} per step")
-    step_ms = statistics.median(times[WARMUP_STEPS:]) * 1e3
-    tokens_per_s = B * L / (step_ms / 1e3)
-    mfu = tokens_per_s * 6 * n_params / PEAK_FLOPS[torch.bfloat16]
+    if abs(run.losses[0] - ref_loss) > 2e-2:
+        raise AssertionError(f"train: first loss {run.losses[0]} vs "
+                             f"reference attention {ref_loss}")
     log(f"train ok: gpt2-125m {n_params} params, batch {B} seq {L}, "
-        f"losses {[round(x, 4) for x in losses]} (reference attention "
-        f"{ref_loss:.4f}), launches {launches} in {steps} steps")
-    log(f"train step_ms {step_ms:.2f} (median of {TIMED_STEPS}; all "
-        f"{[round(t * 1e3, 2) for t in times]}), tokens/s "
-        f"{tokens_per_s:.1f}, MFU {mfu:.4f} of 989 TFLOP/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return state, step, batch, launches, step_ms
+        f"losses {[round(x, 4) for x in run.losses]} (reference attention "
+        f"{ref_loss:.4f}), launches {run.launches} in "
+        f"{WARMUP_STEPS + TIMED_STEPS} steps")
+    log_run("train", run, n_params)
+    return state, step, batch, run.launches, run.step_ms
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-8: the MoE FFN and the remat policies.
+
+MOE = dict(moe_experts=8, moe_capacity_factor=1.25, max_seq=L,
+           flash_attention=True)
+MOE_PARAMS = 521_233_920
+MOE_ACTIVE_PARAMS = 124_549_632     # one expert per layer, plus the router
+MOE_SERVE_REQUESTS, MOE_SERVE_NEW = 16, 64
+# Index and one-hot MoE FFN: the same bf16 products, and each token's
+# output is one term (its gate times its slot's output) in both, so the
+# logits agree to f32 summation order in the LM head; a token dropped by
+# one and not the other moves its slot's logits by about 0.1.
+MOE_LOGIT_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def moe_routes(tt, plain=False):
+    """Yields a list that collects (expert [T], capacity C) of every MoE
+    layer call inside the block; ``plain`` runs the layers as the one-hot
+    plain version (``_moe_ffn_onehot``) meanwhile."""
+    seen, route, moe = [], tt._route, tt._moe_ffn
+
+    def spy(x, bp, cfg, tape):
+        gate, expert, C = route(x, bp, cfg, tape)
+        seen.append((expert, C))
+        return gate, expert, C
+
+    tt._route = spy
+    if plain:
+        tt._moe_ffn = tt._moe_ffn_onehot
+    try:
+        yield seen
+    finally:
+        tt._route, tt._moe_ffn = route, moe
+
+
+def dropped(seen, n_experts):
+    """Per MoE call of ``moe_routes``, the mask of tokens past capacity:
+    a token's rank among those routed to its expert exceeds C."""
+    return [F.one_hot(e, n_experts).cumsum(0).gather(1, e[:, None])[:, 0] > c
+            for e, c in seen]
+
+
+def moe_train(tm, fa, profile_path):
+    """Phase 6: gpt2-125m-moe8 training at full width and depth;
+    ``profile_path`` (or None) takes a profile of one more step."""
+    cfg = tm.GPTConfig.preset("gpt2-125m", **MOE)
+    state = new_state(tm, cfg)
+    step = tm.make_train_step(cfg)
+    batch = train_batch(cfg.vocab_size)
+    n_params = tm.count_params(state.params)
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"moe-train: {n_params} params")
+    with torch.no_grad(), moe_routes(tm.transformer, plain=True):
+        ref_loss = tm.loss_fn(state.params, batch, cfg).item()
+    first = []
+
+    @contextlib.contextmanager
+    def spy():
+        with moe_routes(tm.transformer) as seen:
+            yield
+        first.extend(seen[:cfg.n_layers])      # the forward's, not remat's
+    run = run_steps(fa, state, step, batch, "moe-train", cfg.n_layers, spy)
+    share = (sum(m.sum().item() for m in dropped(first, cfg.moe_experts)) /
+             (cfg.n_layers * B * L))
+    # Both sides run the same flash kernels and bf16 products; the loss
+    # differs only by summation order.
+    if abs(run.losses[0] - ref_loss) > 2e-2:
+        raise AssertionError(f"moe-train: first loss {run.losses[0]} vs "
+                             f"one-hot plain MoE {ref_loss}")
+    log(f"moe-train ok: gpt2-125m-moe8 {n_params} params "
+        f"({MOE_ACTIVE_PARAMS} active a token), batch {B} seq {L}, losses "
+        f"{[round(x, 4) for x in run.losses]} (one-hot plain MoE "
+        f"{ref_loss:.6f}), launches {run.launches} in "
+        f"{WARMUP_STEPS + TIMED_STEPS} steps; tokens dropped at step 0: "
+        f"{share:.4f} of {cfg.n_layers} x {B * L}")
+    log_run("moe-train", run, MOE_ACTIVE_PARAMS)
+    if profile_path:
+        profile_step(state, step, batch, profile_path, run.step_ms,
+                     "profile moe-train")
+
+
+def remat(tm, fa):
+    """Phase 7: phase 4's configuration under each remat policy, from one
+    init and one batch."""
+    runs = {}
+    for policy in ("full", "matmuls", "dots"):
+        cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L,
+                                  flash_attention=True, remat_policy=policy)
+        state = new_state(tm, cfg)
+        runs[policy] = run_steps(fa, state, tm.make_train_step(cfg),
+                                 train_batch(cfg.vocab_size),
+                                 f"remat {policy}", cfg.n_layers)
+        n_params = tm.count_params(state.params)
+        del state
+        torch.cuda.empty_cache()
+    full = runs["full"]
+    for policy, run in runs.items():
+        extra = (run.peak - full.peak) / 1e9
+        log(f"remat {policy}: first loss {run.losses[0]:.6f}, grad norm "
+            f"{run.grad_norm:.6f}, peak {run.peak / 1e9:.3f} GB "
+            f"(+{extra:.3f} GB on full)")
+        log_run(f"remat {policy}", run, n_params)
+        if policy == "full":
+            continue
+        if abs(run.losses[0] - full.losses[0]) > 1e-6 * full.losses[0]:
+            raise AssertionError(f"remat {policy}: first loss "
+                                 f"{run.losses[0]} vs full {full.losses[0]}")
+        if abs(run.grad_norm - full.grad_norm) > 1e-3 * full.grad_norm:
+            raise AssertionError(f"remat {policy}: grad norm "
+                                 f"{run.grad_norm} vs full {full.grad_norm}")
+        # Each layer keeps qkv, attn_out and mlp_up (or their products):
+        # 100.7 MB at batch 8 x seq 1024, 1.21 GB over 12 layers.
+        if not 0.9 <= extra <= 1.5:
+            raise AssertionError(f"remat {policy}: peak {extra:.3f} GB above"
+                                 f" full's, want 0.9-1.5")
+    log("remat ok: matmuls and dots give full's first loss (1e-6) and grad"
+        " norm (1e-3) with 24/12/12 flash launches a step")
+
+
+@contextlib.contextmanager
+def sampled_logits(gen):
+    """Yields a list that collects the logits ``generate._sample_one`` is
+    handed inside the block."""
+    seen, real = [], gen._sample_one
+
+    def spy(logits, *args, **kw):
+        seen.append(logits.clone())
+        return real(logits, *args, **kw)
+
+    gen._sample_one = spy
+    try:
+        yield seen
+    finally:
+        gen._sample_one = real
+
+
+def check_moe_decode(tm, gen, params, cfg, prompts):
+    """One decode step with slots 1, 3, 4 and 6 live (their first 256
+    prompt tokens prefilled) and the others idle, with the index and the
+    one-hot plain MoE FFN: the same tokens dropped in every layer, the
+    same next tokens, logits within MOE_LOGIT_ATOL."""
+    S, bs, width, n = 8, 16, 1024 // 16, 256
+    live = (1, 3, 4, 6)
+    pool = gen.init_paged_pool(cfg, 1 + len(live) * width, bs, S, width)
+    kv = {"k": pool["k"], "v": pool["v"]}
+    bt = torch.zeros(S, width, dtype=torch.int64, device="cuda")
+    lengths = torch.zeros(S, dtype=torch.int64, device="cuda")
+    tokens = torch.zeros(S, dtype=torch.int64, device="cuda")
+    for i, slot in enumerate(live):
+        bt[slot] = torch.arange(1 + i * width, 1 + (i + 1) * width)
+        p = prompts[i][:n]
+        padded = torch.zeros(1, n, dtype=torch.int64, device="cuda")
+        padded[0, :len(p)] = torch.tensor(p)
+        first, kv = gen.prefill_chunk_paged(
+            params, kv, bt[slot], padded, 0, len(p), 0, cfg=cfg,
+            block_size=bs)
+        tokens[slot], lengths[slot] = first[0], len(p)
+    active = torch.zeros(S, dtype=torch.bool, device="cuda")
+    active[list(live)] = True
+
+    def step(plain):
+        cache = {"k": kv["k"].clone(), "v": kv["v"].clone(),
+                 "block_tables": bt, "lengths": lengths.clone()}
+        with moe_routes(tm.transformer, plain) as seen, \
+                sampled_logits(gen) as logits:
+            nxt, _ = gen.decode_step_paged(params, cache, tokens, active,
+                                           torch.zeros_like(tokens), cfg=cfg,
+                                           block_size=bs)
+        return nxt, logits[0], dropped(seen, cfg.moe_experts)
+
+    # Every idle slot writes its K/V to scratch row 0 and attends to it (the
+    # reference's rule). On the card several writes to one row land in no
+    # fixed order, so the idle slots' hidden states, and through expert
+    # capacity the live tokens' drops, can change from run to run.
+    # Deterministic algorithms fix the order for the comparison; the runs
+    # without them show how often the drops move.
+    free = [step(False)[2] for _ in range(4)]
+    moved = sum(not all(torch.equal(a, b) for a, b in zip(free[0], d))
+                for d in free[1:])
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (nxt, logits, drops), (nxt_p, logits_p, drops_p) = (
+            step(False), step(True))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    if not all(torch.equal(a, b) for a, b in zip(drops, drops_p)):
+        raise AssertionError("moe decode: index and one-hot drop different "
+                             "tokens")
+    n_drop = sum(int(m.sum()) for m in drops)
+    live_drop = sum(int(m[list(live)].sum()) for m in drops)
+    if not n_drop:
+        raise AssertionError("moe decode: no token dropped; the check needs "
+                             "capacity to bind")
+    err = close("moe decode logits", logits, logits_p, MOE_LOGIT_ATOL, 0.0)
+    if not torch.equal(nxt, nxt_p):
+        raise AssertionError(f"moe decode: tokens {nxt.tolist()} vs one-hot "
+                             f"{nxt_p.tolist()}")
+    log(f"moe decode ok: slots {list(live)} live of {S} (capacity 1 per "
+        f"expert); {n_drop} tokens dropped over {cfg.n_layers} layers "
+        f"({live_drop} of live slots), the same in both; logits max |diff| "
+        f"{err:.3e} (atol {MOE_LOGIT_ATOL}); without deterministic "
+        f"algorithms {moved} of 3 repeats dropped other tokens than the "
+        f"first")
+
+
+def moe_serve(tm, gen, se, seed):
+    """Phase 8: the paged engine on gpt2-125m-moe8."""
+    ec = se.EngineConfig(
+        preset="gpt2-125m", model_overrides=tuple(sorted(MOE.items())),
+        max_slots=8, max_len=L, paged_kv=True, kv_block_size=16,
+        prefill_chunk=256, prefix_cache_enabled=True,
+        max_new_tokens=MOE_SERVE_NEW)
+    cfg = ec.gpt_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = gen.serving_params(tm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda"), cfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(64, 513, MOE_SERVE_REQUESTS)]
+    _, out = serve_run(gen, se, params, cfg, prompts, "moe", ec,
+                       MOE_SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_moe_decode(tm, gen, params, cfg, prompts)
+    log(f"moe-serve ok: gpt2-125m-moe8 bf16, prompts "
+        f"{sorted(len(p) for p in prompts)}, peak memory {peak:.2f} GiB")
+    log("moe-serve metrics: " + json.dumps(dict(out, peak_gib=peak)))
 
 
 def union_ms(ranges) -> float:
@@ -403,11 +697,21 @@ def union_ms(ranges) -> float:
     return total / 1e3
 
 
-def profile_step(state, step, batch, path, step_ms):
+def top_ops(device, n=6) -> str:
+    """The ``n`` device ops of most total time among profiler events."""
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top)
+
+
+def profile_step(state, step, batch, path, step_ms, label="profile"):
     """One train step under torch.profiler; the table of device time by
     kernel goes to ``path``. Prints the device's busy time (the union of
     its kernels' and copies' intervals) against the unprofiled median
-    ``step_ms``, and the flash kernels' share of it."""
+    ``step_ms``, the flash kernels' share of it and the top ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -425,13 +729,14 @@ def profile_step(state, step, batch, path, step_ms):
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = union_ms([e.time_range for e in device])
     flash = union_ms([e.time_range for e in device if "flash_" in e.name])
-    log(f"profile: device busy {busy:.2f} ms per step, {step_ms:.2f} ms "
+    log(f"{label}: device busy {busy:.2f} ms per step, {step_ms:.2f} ms "
         f"step (idle share {1 - busy / step_ms:.4f}); flash kernels "
-        f"{flash:.2f} ms ({flash / busy:.4f} of busy); table in {path}")
+        f"{flash:.2f} ms ({flash / busy:.4f} of busy); top: "
+        f"{top_ops(device)}; table in {path}")
 
 
 # ---------------------------------------------------------------------------
-# Phases 6 and 7: the serving path (models/generate.py, serve/llm/engine.py).
+# Phases 9-10: the serving path (models/generate.py, serve/llm/engine.py).
 
 # jax.random's output for these keys (jax 0.9.0: threefry2x32, partitionable
 # bits), computed with jax beside the JAX package; the card's machine has no
@@ -525,7 +830,7 @@ def serve_requests(eng, prompts, n, seeds, timeout_s):
 
 
 def serve_check(tm, gen, se):
-    """Phase 6: llama-7b widths at two layers in f32, token-exact."""
+    """Phase 9: llama-7b widths at two layers in f32, token-exact."""
     base = dict(preset="llama-7b",
                 model_overrides={"n_layers": 2, "dtype": "float32"},
                 max_slots=4, max_len=320, paged_kv=True, kv_block_size=16,
@@ -622,16 +927,12 @@ def serve_prompts(seed, vocab):
     return prompts
 
 
-def serve_run(gen, se, params, cfg, prompts, label, **sampling):
-    """One engine of the main serving configuration over ``prompts``;
-    returns its metrics. Wraps the engine's decode and chunk-prefill calls
-    to time them: the host's time to launch a call's work, and the time to
-    its end on the device (a synchronise, which the engine does right
-    after anyway)."""
-    ec = se.EngineConfig(
-        preset="llama-7b", max_slots=8, max_len=2048, paged_kv=True,
-        kv_block_size=16, prefill_chunk=512, prefix_cache_enabled=True,
-        max_new_tokens=SERVE_NEW, **sampling)
+def serve_run(gen, se, params, cfg, prompts, label, ec, n_new):
+    """One engine of configuration ``ec`` over ``prompts``, ``n_new``
+    tokens each; returns its metrics. Wraps the engine's decode and
+    chunk-prefill calls to time them: the host's time to launch a call's
+    work, and the time to its end on the device (a synchronise, which the
+    engine does right after anyway)."""
     steps, chunks = [], []
 
     def timed(fn, record, count):
@@ -650,15 +951,15 @@ def serve_run(gen, se, params, cfg, prompts, label, **sampling):
     eng = se.InflightBatchEngine(params, cfg, ec, replica_id=label)
     try:
         seeds = list(range(len(prompts)))
-        toks, ttft, wall = serve_requests(eng, prompts, SERVE_NEW, seeds, 600)
+        toks, ttft, wall = serve_requests(eng, prompts, n_new, seeds, 600)
         stats = eng.stats()
     finally:
         eng.stop()
         gen.decode_step_paged, gen.prefill_chunk_paged = decode, chunk
-    short = [i for i, t in enumerate(toks) if len(t) != SERVE_NEW]
+    short = [i for i, t in enumerate(toks) if len(t) != n_new]
     if short or stats["kv_blocks_used"] != 0:
         raise AssertionError(f"serve {label}: requests {short} short of "
-                             f"{SERVE_NEW} tokens; stats {stats}")
+                             f"{n_new} tokens; stats {stats}")
     if not all(0 <= x < cfg.vocab_size for t in toks for x in t):
         raise AssertionError(f"serve {label}: token out of the vocabulary")
     step_s = sum(t for t, _, _ in steps)
@@ -678,7 +979,7 @@ def serve_run(gen, se, params, cfg, prompts, label, **sampling):
         "prefix_hit_tokens": stats["prefix_cache_hit_tokens"],
         "prefill_tokens_computed": stats["prefill_tokens_computed"],
     }
-    log(f"serve {label}: {len(prompts)} requests x {SERVE_NEW} tokens in "
+    log(f"serve {label}: {len(prompts)} requests x {n_new} tokens in "
         f"{wall:.3f} s; TTFT p50 {out['ttft_p50_ms']:.1f} ms p99 "
         f"{out['ttft_p99_ms']:.1f} ms; decode {out['decode_tokens_per_s']:.1f}"
         f" tokens/s, step {out['decode_step_ms']:.3f} ms mean (p50 "
@@ -765,14 +1066,8 @@ def profile_decode(gen, params, cfg, path):
         f.write(table)
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = union_ms([e.time_range for e in device])
-    by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"profile decode step: device busy {busy:.3f} ms, step {wall_ms:.3f}"
-        f" ms (idle share {1 - busy / wall_ms:.4f}); top: " + "; ".join(
-            f"{name[:60]} {ms:.3f} ms" for name, ms in top) +
+        f" ms (idle share {1 - busy / wall_ms:.4f}); top: {top_ops(device)}"
         f"; table in {path}")
 
 
@@ -782,7 +1077,7 @@ SERVE_LOGIT_ATOL = 0.25
 
 
 def serve(tm, gen, se, fa, seed, profile_path):
-    """Phase 7: llama-7b at full width and depth, bf16, the paged engine;
+    """Phase 10: llama-7b at full width and depth, bf16, the paged engine;
     the flash kernels' counts are zeroed before and read after (the
     serving path launches none of them)."""
     cfg = se.EngineConfig(preset="llama-7b").gpt_config()
@@ -803,8 +1098,12 @@ def serve(tm, gen, se, fa, seed, profile_path):
     for label, sampling in (("greedy", {}),
                             ("sampled", dict(temperature=0.8, top_k=50))):
         torch.cuda.reset_peak_memory_stats()
+        ec = se.EngineConfig(
+            preset="llama-7b", max_slots=8, max_len=2048, paged_kv=True,
+            kv_block_size=16, prefill_chunk=512, prefix_cache_enabled=True,
+            max_new_tokens=SERVE_NEW, **sampling)
         _, results[label] = serve_run(gen, se, params, cfg, prompts, label,
-                                      **sampling)
+                                      ec, SERVE_NEW)
         results[label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.empty_cache()
     flash = {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
@@ -826,8 +1125,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels, then stop")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one train step and one decode step "
-                         "into chiprun_out/")
+                    help="profile one train step of each model and one "
+                         "decode step into chiprun_out/")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
     args = ap.parse_args()
@@ -917,13 +1216,22 @@ def main() -> int:
         log(f"time {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
             f"{t['library_ms']}, {launches[name]} launches in the train run")
+    k23 = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
     log(f"time sdpa backward (dQ, dK, dV at once, yardstick): "
-        f"{sdpa_bwd:.4f} ms; train step {step_ms:.2f} ms")
+        f"{sdpa_bwd:.4f} ms against K2 + K3 {k23:.4f} ms; train step "
+        f"{step_ms:.2f} ms")
     torch.cuda.empty_cache()
 
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
+    moe_train(tm, fa, os.path.join("chiprun_out",
+                                   "profile_moe_train_step.txt")
+              if args.profile else None)
+    torch.cuda.empty_cache()
+    remat(tm, fa)
+    moe_serve(tm, gen, se, args.seed)
+    torch.cuda.empty_cache()
     serve_check(tm, gen, se)
     torch.cuda.empty_cache()
     serve(tm, gen, se, fa, args.seed,

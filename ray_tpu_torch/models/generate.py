@@ -19,7 +19,9 @@ Every function of the reference, in its order and under its name:
 Kept from the reference: f32 attention logits and softmax with the finite
 ``-1e30`` mask, the probabilities cast back to the cache's dtype for the
 product with V; f32 LM-head logits from the f32 embedding; the block math of
-``transformer._ffn`` and ``_layer_norm``; sampling keys ``fold_in(fold_in(
+``transformer._ffn`` and ``_layer_norm`` (a MoE FFN's capacity counts every
+row of a call, inactive slots and pad rows included, so they can push a
+live token past its expert's capacity); sampling keys ``fold_in(fold_in(
 key(0), seed), position)`` with threefry bits equal to ``jax.random``'s
 (``ray_tpu_torch.random``).
 

@@ -1,26 +1,40 @@
 """GPT-family decoder transformer (port of ``ray_tpu/models/transformer.py``,
-the dense single-device path).
+the single-device path: dense or mixture-of-experts FFN, every remat
+policy).
 
 Kept from the reference:
 
 - **Plain-dict params** with the reference's names and layouts: block
   params stacked on a leading ``layers`` dim, ``wqkv`` [L, D, 3, H, Dh],
-  ``wo`` [L, H, Dh, D]. ``models.convert.params_from_numpy`` carries JAX
-  params over by name alone.
+  ``wo`` [L, H, Dh, D], the experts' ``w_up`` [L, E, D, F]. ``models.
+  convert.params_from_numpy`` carries JAX params over by name alone.
 - **bf16 compute, f32 master params**: params live in ``param_dtype``
   and are cast to ``dtype`` for use, once per step; layer norm runs in f32.
-- **Remat**: ``remat_policy="full"`` checkpoints each block
-  (``torch.utils.checkpoint``), so backward recomputes it, flash-attention
-  forward included.
+- **Switch top-1 MoE** (``moe_experts > 0``): the reference's routing,
+  capacity and dropping rule for rule (``_moe_ffn``), computed by index
+  where the reference multiplies by one-hot dispatch and combine tensors
+  (``_moe_ffn_onehot`` keeps that form as the plain version).
+- **Remat** under ``cfg.remat``: each block runs as ``_Remat``, which keeps
+  the block's input, its params and what the policy names, and recomputes
+  the rest in backward, attention (and its flash forward) included under
+  every policy. The kept sets are those of the reference's
+  ``jax.checkpoint`` policies, as ``print_saved_residuals`` lists them:
+  ``"full"`` nothing more; ``"matmuls"`` the products after their biases
+  that the reference names and its backward reads (``qkv``, ``attn_out``
+  and, dense, ``mlp_up``); ``"dots"`` every product without batch axes
+  that the backward reads, before its bias: the qkv, output-projection
+  and (dense) up-projection products, and (MoE) the router logits and the
+  dispatched ``expert_in`` [E, C, D]. The reference's comment calls
+  ``"dots"`` "mostly a no-op" for this model; it keeps as much as
+  ``"matmuls"``.
 - **f32 logits**: the tied LM head multiplies operands in ``dtype`` and
   keeps the f32 sums as logits (the reference's
   ``preferred_element_type=float32``).
 
 What changes: ``lax.scan`` over the stacked layers is a Python loop; the
 train step updates params in place with a ``torch.optim`` optimizer. Mesh
-sharding, ring attention, MoE, pipeline parallelism and the
-``"matmuls"``/``"dots"`` remat policies belong to later slices and raise
-``NotImplementedError``.
+sharding, ring attention and pipeline parallelism need more than one
+device, belong to later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +45,6 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import mha_reference
@@ -52,12 +65,22 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32
     rotary: bool = False      # learned positions (GPT-2 parity) by default
     remat: bool = True
-    # "full" recomputes each block in backward; "matmuls" and "dots" are
-    # the reference's selective policies, not ported yet.
+    # What a block keeps for backward under cfg.remat (_REMAT_KEEPS):
+    #   "full"    — its input and params only; backward recomputes it all.
+    #   "matmuls" — also qkv and attn_out after their biases, and the
+    #               dense FFN's mlp_up (before gelu): 100.7 MB a layer at
+    #               batch 8 x seq 1024, gpt2-125m widths, in bf16.
+    #   "dots"    — the reference's dots_with_no_batch_dims_saveable: the
+    #               same three products before their biases (dense), or
+    #               the qkv and wo products, router logits [T, E] and
+    #               expert_in [E, C, D] (MoE).
     remat_policy: str = "full"
     ring_attention: bool = False   # not ported: needs collectives
     eps: float = 1e-5
-    moe_experts: int = 0           # not ported: 0 = dense
+    # Switch top-1 mixture of experts (0 = dense): tokens past each
+    # expert's capacity C = max(1, int(cf * T / E)) of a call's T tokens
+    # are dropped (FFN output 0), so the rows of a batch share capacity.
+    moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     pp_microbatches: Optional[int] = None   # not ported
     # Flash attention (ops/flash_attention.py): True/False force it; "auto"
@@ -99,14 +122,9 @@ def _check_supported(cfg: GPTConfig, mesh=None, rules=None) -> None:
         raise NotImplementedError("mesh sharding is not ported yet")
     if cfg.ring_attention:
         raise NotImplementedError("ring attention is not ported yet")
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE FFN is not ported yet")
     if cfg.pp_microbatches is not None:
         raise NotImplementedError("pipeline parallelism is not ported yet")
-    if cfg.remat and cfg.remat_policy != "full":
-        if cfg.remat_policy in ("matmuls", "dots"):
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet")
+    if cfg.remat and cfg.remat_policy not in _REMAT_KEEPS:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
@@ -134,6 +152,7 @@ def init_params(cfg: GPTConfig, *, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=pd, device=device)
 
+    E = cfg.moe_experts
     params: Params = {
         "tok_embed": norm(cfg.vocab_size, D),
         "blocks": {
@@ -145,10 +164,18 @@ def init_params(cfg: GPTConfig, *, generator: torch.Generator,
             "bo": zeros(L, D),
             "ln2_scale": ones(L, D),
             "ln2_bias": zeros(L, D),
-            "w_up": norm(L, D, Fd),
-            "b_up": zeros(L, Fd),
-            "w_down": norm(L, Fd, D, s=res_std),
-            "b_down": zeros(L, D),
+            **({
+                "wg": norm(L, D, E),
+                "w_up": norm(L, E, D, Fd),
+                "b_up": zeros(L, E, Fd),
+                "w_down": norm(L, E, Fd, D, s=res_std),
+                "b_down": zeros(L, E, D),
+            } if E else {
+                "w_up": norm(L, D, Fd),
+                "b_up": zeros(L, Fd),
+                "w_down": norm(L, Fd, D, s=res_std),
+                "b_down": zeros(L, D),
+            }),
         },
         "lnf_scale": ones(D),
         "lnf_bias": zeros(D),
@@ -203,33 +230,241 @@ def _attention(q, k, v, cfg: GPTConfig):
     return mha_reference(q, k, v, causal=True)
 
 
-def _ffn(h, bp, cfg: GPTConfig):
+# ---------------------------------------------------------------------------
+# Remat: what a block keeps for backward.
+
+# The tensors each policy keeps besides the block's input and params: a
+# product after its bias under its name, before it under name + ".dot";
+# "expert_in" is the MoE dispatch [E, C, D]. The reference's "matmuls" also
+# names the FFN's output (mlp_down), which its backward never reads, so
+# nothing keeps it; its "dots" saves every product without batch axes that
+# the backward reads (attention's and the experts' products have them).
+_REMAT_KEEPS = {
+    "full": frozenset(),
+    "matmuls": frozenset({"qkv", "attn_out", "mlp_up"}),
+    "dots": frozenset({"qkv.dot", "attn_out.dot", "mlp_up.dot",
+                       "router.dot", "expert_in"}),
+}
+
+
+class _Tape:
+    """The tensors of one block that its remat policy keeps: filled by the
+    forward, read by the recompute in backward (``kept`` given)."""
+
+    def __init__(self, names, kept=None):
+        self.names = names
+        self.recompute = kept is not None
+        self.kept = {} if kept is None else kept
+
+
+def _keep(tape: Optional[_Tape], name: str, compute, vjp, *inputs):
+    """``compute()``, unless the policy keeps ``name``: then the forward
+    stores the result, and the recompute returns the stored tensor without
+    computing it and backpropagates through ``vjp(grad, *inputs)``, the
+    op's own gradients from its recomputed inputs."""
+    if tape is None or name not in tape.names:
+        return compute()
+    if tape.recompute:
+        return _Kept.apply(vjp, tape.kept[name], *inputs)
+    out = tape.kept[name] = compute()
+    return out
+
+
+class _Kept(torch.autograd.Function):
+    """A kept tensor standing in for the op that made it (``_keep``)."""
+
+    @staticmethod
+    def forward(ctx, vjp, out, *inputs):
+        ctx.vjp = vjp
+        ctx.save_for_backward(*inputs)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *ctx.vjp(grad, *ctx.saved_tensors))
+
+
+def _product_vjp(grad, a, w, b=None):
+    """Gradients of ``_project``'s ``(a @ w) + b`` for its inputs."""
+    w2 = w.reshape(w.shape[0], -1)
+    g2 = grad.reshape(-1, w2.shape[1])
+    da = (g2 @ w2.t()).view(a.shape)
+    dw = (a.reshape(-1, a.shape[-1]).t() @ g2).view(w.shape)
+    return (da, dw) if b is None else (da, dw, grad.sum_to_size(b.shape))
+
+
+def _project(a, w, b, tape: Optional[_Tape] = None, name: str = ""):
+    """``a @ w + b`` for a [..., K], w [K, *out] and b [*out] (or None):
+    the reference's einsum as one matmul over the flattened out axes. A
+    remat policy may keep it as ``name`` after the bias or ``name + ".dot"``
+    before it."""
+    def product():
+        return (a @ w.reshape(w.shape[0], -1)).view(*a.shape[:-1],
+                                                     *w.shape[1:])
+
+    def dot():
+        return _keep(tape, name + ".dot", product, _product_vjp, a, w)
+
+    if b is None:
+        return dot()
+    return _keep(tape, name, lambda: dot() + b, _product_vjp, a, w, b)
+
+
+class _Remat(torch.autograd.Function):
+    """One block under ``cfg.remat_policy``: the forward runs without a
+    graph and keeps the block's input, its params and the policy's tensors
+    (``_REMAT_KEEPS``); backward recomputes the block from them and
+    backpropagates through the recompute."""
+
+    @staticmethod
+    def forward(ctx, cfg, positions, names, x, *weights):
+        tape = _Tape(_REMAT_KEEPS[cfg.remat_policy])
+        out = _block(x, dict(zip(names, weights)), cfg, positions, tape)
+        ctx.cfg, ctx.positions, ctx.names = cfg, positions, names
+        ctx.kept_names = tuple(tape.kept)
+        ctx.save_for_backward(x, *weights, *tape.kept.values())
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = len(ctx.names) + 1
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in saved[:n]]
+        tape = _Tape(_REMAT_KEEPS[ctx.cfg.remat_policy],
+                     dict(zip(ctx.kept_names, saved[n:])))
+        with torch.enable_grad():
+            out = _block(inputs[0], dict(zip(ctx.names, inputs[1:])),
+                         ctx.cfg, ctx.positions, tape)
+        grads = torch.autograd.grad(out, inputs, grad, allow_unused=True)
+        return (None, None, None, *grads)
+
+
+# ---------------------------------------------------------------------------
+# The FFN: dense, or Switch top-1 mixture of experts.
+
+
+def _ffn(h, bp, cfg: GPTConfig, tape: Optional[_Tape] = None):
+    if cfg.moe_experts:
+        return _moe_ffn(h, bp, cfg, tape)
     cd = cfg.dtype
-    up = h @ bp["w_up"].to(cd) + bp["b_up"].to(cd)
+    up = _project(h, bp["w_up"].to(cd), bp["b_up"].to(cd), tape, "mlp_up")
     # jax.nn.gelu's default is the tanh approximation.
     up = F.gelu(up, approximate="tanh")
     return up @ bp["w_down"].to(cd) + bp["b_down"].to(cd)
 
 
-def _block(x, bp, cfg: GPTConfig, positions):
+def _route(x, bp, cfg: GPTConfig, tape: Optional[_Tape]):
+    """Top-1 routing of x [T, D]: (gate [T] f32, expert [T], capacity C).
+    The router logits are a product in the compute dtype, the softmax runs
+    in f32; the gate is the top probability (``amax`` shares the gradient
+    among ties, as ``jnp.max``) and the expert its first index
+    (``argmax``, as ``jnp.argmax``)."""
+    E = cfg.moe_experts
+    C = max(1, int(cfg.moe_capacity_factor * x.shape[0] / E))
+    logits = _project(x, bp["wg"].to(cfg.dtype), None, tape, "router")
+    gates = torch.softmax(logits.float(), dim=-1)
+    return gates.amax(-1), gates.argmax(-1), C
+
+
+def _experts(expert_in, bp, cfg: GPTConfig):
+    """Each expert's FFN on its slots, expert_in [E, C, D] -> [E, C, D]."""
+    cd = cfg.dtype
+    up = torch.bmm(expert_in, bp["w_up"].to(cd)) + bp["b_up"].to(cd)[:, None]
+    up = F.gelu(up, approximate="tanh")
+    return (torch.bmm(up, bp["w_down"].to(cd))
+            + bp["b_down"].to(cd)[:, None])
+
+
+def _gather_vjp(grad, x_pad, src):
+    dx = torch.zeros_like(x_pad).index_add_(
+        0, src, grad.reshape(-1, x_pad.shape[1]))
+    return dx, None
+
+
+def _moe_ffn(h, bp, cfg: GPTConfig, tape: Optional[_Tape] = None):
+    """The reference's ``_moe_ffn`` (Switch top-1, GShard capacity) by
+    index. A token's slot is its rank among the tokens routed to its
+    expert, counted in flattened [B*L] order; tokens past the capacity C
+    are dropped (output 0, the residual carries them). Each kept token's
+    row is copied into its [E, C, D] slot, the experts run as batched
+    products, and each token takes its slot's output times its gate
+    rounded to the compute dtype: the reference's dispatch and combine
+    einsums, without their [T, E, C] one-hot tensors and their products."""
+    cd = cfg.dtype
+    B, L, D = h.shape
+    E = cfg.moe_experts
+    x = h.reshape(-1, D)
+    T = x.shape[0]
+    gate, expert, C = _route(x, bp, cfg, tape)
+    # Running count of each expert's tokens, scanned along the contiguous
+    # token axis of [E, T]: a scan down the E columns of [T, E] runs on too
+    # few threads (34 ms of a gpt2-125m-moe8 train step on an NVIDIA H100
+    # 80GB HBM3 at 700.00 W; PERF.md, PR 5).
+    counts = (expert == torch.arange(E, device=x.device)[:, None]).cumsum(1)
+    rank = counts.gather(0, expert[None])[0] - 1
+    # Each token's slot row in [E*C], or the zero row E*C when dropped.
+    row = torch.where(rank < C, expert * C + rank, E * C)
+    # The token in each slot; T (x_pad's zero row) for an empty slot. The
+    # dropped tokens all write the row past the end, which is cut off.
+    src = torch.full((E * C + 1,), T, dtype=torch.int64, device=x.device)
+    src[row] = torch.arange(T, device=x.device)
+    src = src[:E * C]
+    # index_select, not x[idx]: its backward is index_add_, where indexing
+    # backward sorts and sums each row's duplicates in one serial loop, and
+    # the zero rows here take every empty slot and every dropped token.
+    x_pad = torch.cat([x, x.new_zeros(1, D)])
+    expert_in = _keep(tape, "expert_in",
+                      lambda: x_pad.index_select(0, src).view(E, C, D),
+                      _gather_vjp, x_pad, src)
+    down = _experts(expert_in, bp, cfg)
+    out = torch.cat([down.reshape(E * C, D),
+                     down.new_zeros(1, D)]).index_select(0, row)
+    return (gate.to(cd)[:, None] * out).view(B, L, D)
+
+
+def _dispatch_vjp(grad, dispatch, x):
+    return None, torch.einsum("tec,ecd->td", dispatch, grad)
+
+
+def _moe_ffn_onehot(h, bp, cfg: GPTConfig, tape: Optional[_Tape] = None):
+    """The plain version of ``_moe_ffn``: the reference's one-hot
+    dispatch [T, E, C] and its dispatch and combine einsums, line for
+    line (``ray_tpu/models/transformer.py:265-303``)."""
+    cd = cfg.dtype
+    B, L, D = h.shape
+    E = cfg.moe_experts
+    x = h.reshape(-1, D)
+    gate, expert, C = _route(x, bp, cfg, tape)
+    mask = F.one_hot(expert, E).float()                    # [T, E]
+    pos = torch.cumsum(mask, 0) * mask                     # 1-based slot
+    mask = mask * (pos <= C)
+    pos = (pos - 1.0) * mask                               # 0-based
+    dispatch = mask[:, :, None] * F.one_hot(pos.long(), C).float()
+    dispatch_cd = dispatch.to(cd)
+    expert_in = _keep(
+        tape, "expert_in",
+        lambda: torch.einsum("tec,td->ecd", dispatch_cd, x),
+        _dispatch_vjp, dispatch_cd, x)
+    down = _experts(expert_in, bp, cfg)
+    combine = (dispatch * gate[:, None, None]).to(cd)
+    return torch.einsum("tec,ecd->td", combine, down).view(B, L, D)
+
+
+def _block(x, bp, cfg: GPTConfig, positions, tape: Optional[_Tape] = None):
     """One pre-LN transformer block. x: [B, L, D]."""
     cd = cfg.dtype
     b, l, d = x.shape
-    # The reference's einsums, as matmuls over flattened head axes: each is
-    # one cuBLAS call with fewer ops around it for the host to launch.
     h = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.eps)
-    wqkv = bp["wqkv"].to(cd)
-    qkv = ((h @ wqkv.reshape(d, -1)).view(b, l, *wqkv.shape[1:])
-           + bp["bqkv"].to(cd))
+    qkv = _project(h, bp["wqkv"].to(cd), bp["bqkv"].to(cd), tape, "qkv")
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if cfg.rotary:
         q, k = _rope(q, positions), _rope(k, positions)
     attn = _attention(q, k, v, cfg)
-    wo = bp["wo"].to(cd)
-    proj = attn.reshape(b, l, -1) @ wo.reshape(-1, d) + bp["bo"].to(cd)
+    proj = _project(attn.reshape(b, l, -1), bp["wo"].to(cd).reshape(-1, d),
+                    bp["bo"].to(cd), tape, "attn_out")
     x = x + proj
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.eps)
-    return x + _ffn(h, bp, cfg)
+    return x + _ffn(h, bp, cfg, tape)
 
 
 # Block params that layer norm reads in f32; the rest feed bf16 products.
@@ -262,8 +497,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
         x = x + params["pos_embed"][:L].to(cd)
 
     for bp in _layer_params(params["blocks"], cd):
-        if cfg.remat:
-            x = checkpoint(_block, x, bp, cfg, positions, use_reentrant=False)
+        if cfg.remat and torch.is_grad_enabled():
+            x = _Remat.apply(cfg, positions, tuple(bp), x, *bp.values())
         else:
             x = _block(x, bp, cfg, positions)
 
