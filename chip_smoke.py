@@ -43,9 +43,11 @@ Phases, each printed on its own line, each fatal when it fails:
 8. moe-serve: the paged engine on gpt2-125m-moe8, bf16, 8 slots, max_len
    1024, block 16, chunk 256, prefix cache on; 16 greedy requests of
    64-512 prompt tokens from ``--seed``, 64 new tokens each, submitted at
-   once. Then one decode step with half the slots idle against the same
-   step with the one-hot plain MoE FFN: the same tokens dropped (idle
-   slots take expert capacity, as in the reference), the same logits.
+   once. Then one decode step with half the slots idle, 3 times, each
+   against the same step with the one-hot plain MoE FFN: the same tokens
+   dropped (idle slots take expert capacity, as in the reference), the
+   same logits, with no deterministic-algorithms switch (idle slots write
+   one slot's K/V to scratch row 0, so the card's write order is moot).
 9. serve-check: llama-7b widths at two layers, f32, token-exact. The paged
    engine (block 16, chunk 64) on 4 prompts of 37-300 tokens gives the
    greedy tokens of an argmax rollout by ``models.forward``; the prefix
@@ -63,6 +65,18 @@ Phases, each printed on its own line, each fatal when it fails:
    KV block returned; prints TTFT, decode and prefill rates, decode-step
    time, prefix-cache hits and peak memory. ``--profile`` also writes a
    profile of one decode step to chiprun_out/profile_decode_step.txt.
+11. rl: RLlib's learners and rollout workers (``ray_tpu_torch/rllib``) at
+   the JAX package's defaults, CartPole-v1's sizes (4 obs, 2 actions,
+   hidden 64, 64) and Pendulum-v1's (3 obs, 1 action in [-2, 2], hidden
+   128, 128), batches from numpy with ``--seed``: PPO (2 fragments of 200,
+   minibatch 128, 4 epochs), A2C (one step, and microbatches of 128),
+   IMPALA (one 200-step fragment), BC (400 rows), DQN (32 updates of 64),
+   Ape-X (one weighted update of 64 rows from a prioritized shard), SAC (32
+   updates of 128). Each update on the card against the CPU from the same
+   state; its median ms over 5 after 2 warm-up, its kernels and copies from
+   torch.profiler. Then a CartPole-v1 and a Pendulum-v1 fragment of 200
+   steps with the policy on the card, against the CPU's (gymnasium's envs
+   when it imports, else numpy ones with their dynamics).
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -467,6 +481,7 @@ MOE_SERVE_REQUESTS, MOE_SERVE_NEW = 16, 64
 # logits agree to f32 summation order in the LM head; a token dropped by
 # one and not the other moves its slot's logits by about 0.1.
 MOE_LOGIT_ATOL = 1e-3
+MOE_DECODE_REPEATS = 3
 
 
 @contextlib.contextmanager
@@ -625,41 +640,36 @@ def check_moe_decode(tm, gen, params, cfg, prompts):
                                            block_size=bs)
         return nxt, logits[0], dropped(seen, cfg.moe_experts)
 
-    # Every idle slot writes its K/V to scratch row 0 and attends to it (the
-    # reference's rule). On the card several writes to one row land in no
-    # fixed order, so the idle slots' hidden states, and through expert
-    # capacity the live tokens' drops, can change from run to run.
-    # Deterministic algorithms fix the order for the comparison; the runs
-    # without them show how often the drops move.
-    free = [step(False)[2] for _ in range(4)]
-    moved = sum(not all(torch.equal(a, b) for a, b in zip(free[0], d))
-                for d in free[1:])
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        (nxt, logits, drops), (nxt_p, logits_p, drops_p) = (
-            step(False), step(True))
-    finally:
-        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
-    if not all(torch.equal(a, b) for a, b in zip(drops, drops_p)):
-        raise AssertionError("moe decode: index and one-hot drop different "
-                             "tokens")
+    # Every idle slot writes to scratch row 0 and attends to it (the
+    # reference's rule), and idle slots take expert capacity from live
+    # ones. The port gives each duplicate write the K/V row of one idle slot
+    # (generate._one_writer), so the order in which the card applies them
+    # cannot move the drops: 3 repeats, no global switch, each against the
+    # one-hot plain version.
+    nxt_p, logits_p, drops_p = step(True)
+    errs = []
+    for rep in range(MOE_DECODE_REPEATS):
+        nxt, logits, drops = step(False)
+        if not all(torch.equal(a, b) for a, b in zip(drops, drops_p)):
+            raise AssertionError(f"moe decode repeat {rep}: index and one-hot "
+                                 f"drop different tokens")
+        errs.append(close(f"moe decode logits, repeat {rep}", logits,
+                          logits_p, MOE_LOGIT_ATOL, 0.0))
+        if not torch.equal(nxt, nxt_p):
+            raise AssertionError(f"moe decode repeat {rep}: tokens "
+                                 f"{nxt.tolist()} vs one-hot "
+                                 f"{nxt_p.tolist()}")
     n_drop = sum(int(m.sum()) for m in drops)
     live_drop = sum(int(m[list(live)].sum()) for m in drops)
     if not n_drop:
         raise AssertionError("moe decode: no token dropped; the check needs "
                              "capacity to bind")
-    err = close("moe decode logits", logits, logits_p, MOE_LOGIT_ATOL, 0.0)
-    if not torch.equal(nxt, nxt_p):
-        raise AssertionError(f"moe decode: tokens {nxt.tolist()} vs one-hot "
-                             f"{nxt_p.tolist()}")
     log(f"moe decode ok: slots {list(live)} live of {S} (capacity 1 per "
         f"expert); {n_drop} tokens dropped over {cfg.n_layers} layers "
-        f"({live_drop} of live slots), the same in both; logits max |diff| "
-        f"{err:.3e} (atol {MOE_LOGIT_ATOL}); without deterministic "
-        f"algorithms {moved} of 3 repeats dropped other tokens than the "
-        f"first")
+        f"({live_drop} of live slots), the same as the one-hot version in "
+        f"{MOE_DECODE_REPEATS} of {MOE_DECODE_REPEATS} repeats without "
+        f"deterministic algorithms; logits max |diff| {max(errs):.3e} (atol "
+        f"{MOE_LOGIT_ATOL})")
 
 
 def moe_serve(tm, gen, se, seed):
@@ -1120,6 +1130,406 @@ def serve(tm, gen, se, fa, seed, profile_path):
     log("serve metrics: " + json.dumps(results))
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: RLlib's learners and rollout workers (ray_tpu_torch/rllib/).
+
+RL_WARMUP, RL_TIMED = 2, 5
+RL_FRAGMENT = 200
+# One update on the card and one on the CPU from the same state and batch,
+# both f32 with TF32 off: cuBLAS and the CPU's BLAS sum in other orders, so
+# each op differs by float32 rounding. Metrics (means over the batch) keep
+# that relative size; through Adam's normalised steps (lr 3e-4 to 1e-3, up
+# to 32 steps) a param moves by its rounding-level gradient difference times
+# lr, far below 1e-5. The tolerances leave room for an argmax or clamp
+# boundary crossed on one side only, which moves one term.
+RL_METRIC_TOL = (1e-5, 1e-4)      # (atol, rtol)
+RL_PARAM_TOL = (1e-5, 1e-4)
+# The card's and the CPU's worker pick the same action unless the CPU's two
+# best gumbel + logits scores are closer than this (logits differ by a few
+# f32 ulp on each side); the episodes part there.
+RL_TIE_MARGIN = 1e-5
+
+
+class NumpyCartPole:
+    """CartPole-v1's dynamics, sizes and limits (gymnasium's
+    ``cartpole.py``: Euler steps of 0.02 s, force 10, failure past 2.4 or
+    12 degrees, 500 steps), for a machine without gymnasium."""
+
+    def __init__(self):
+        self._rng = np.random.default_rng(0)
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._s = self._rng.uniform(-0.05, 0.05, 4)
+        self._t = 0
+        return self._s.astype(np.float32), {}
+
+    def step(self, action):
+        x, x_dot, th, th_dot = self._s
+        force = 10.0 if action == 1 else -10.0
+        cos, sin = np.cos(th), np.sin(th)
+        temp = (force + 0.05 * th_dot ** 2 * sin) / 1.1
+        th_acc = (9.8 * sin - cos * temp) / (0.5 * (4 / 3 - 0.1 * cos ** 2
+                                                     / 1.1))
+        x_acc = temp - 0.05 * th_acc * cos / 1.1
+        self._s = np.array([x + 0.02 * x_dot, x_dot + 0.02 * x_acc,
+                            th + 0.02 * th_dot, th_dot + 0.02 * th_acc])
+        self._t += 1
+        term = bool(abs(self._s[0]) > 2.4 or abs(self._s[2]) > 12 * 2 *
+                    math.pi / 360)
+        return (self._s.astype(np.float32), 1.0, term,
+                self._t >= 500 and not term, {})
+
+
+class NumpyPendulum:
+    """Pendulum-v1's dynamics, sizes and limits (gymnasium's
+    ``pendulum.py``: torque in [-2, 2], speed in [-8, 8], steps of 0.05 s,
+    200 steps)."""
+
+    def __init__(self):
+        self._rng = np.random.default_rng(0)
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._s = self._rng.uniform([-math.pi, -1.0], [math.pi, 1.0])
+        self._t = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        th, th_dot = self._s
+        return np.array([np.cos(th), np.sin(th), th_dot], np.float32)
+
+    def step(self, u):
+        th, th_dot = self._s
+        u = float(np.clip(u, -2.0, 2.0)[0])
+        cost = ((th + math.pi) % (2 * math.pi) - math.pi) ** 2 + \
+            0.1 * th_dot ** 2 + 0.001 * u ** 2
+        th_dot = np.clip(th_dot + (15.0 * np.sin(th) + 3.0 * u) * 0.05, -8, 8)
+        self._s = np.array([th + th_dot * 0.05, th_dot])
+        self._t += 1
+        return self._obs(), -cost, False, self._t >= 200, {}
+
+
+def rl_envs():
+    """(CartPole-v1 creator, Pendulum-v1 creator, which): gymnasium's when
+    it imports, else the numpy versions above."""
+    try:
+        import gymnasium as gym
+    except ImportError:
+        return NumpyCartPole, NumpyPendulum, "numpy CartPole/Pendulum"
+    return (lambda: gym.make("CartPole-v1"), lambda: gym.make("Pendulum-v1"),
+            f"gymnasium {gym.__version__} CartPole-v1/Pendulum-v1")
+
+
+def rl_batch(rng, n):
+    """An on-policy batch at CartPole's sizes: every column a learner
+    reads, from numpy."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+
+    values = rng.normal(size=n).astype(np.float32)
+    return sb.SampleBatch({
+        sb.OBS: rng.normal(size=(n, 4)).astype(np.float32),
+        sb.ACTIONS: rng.integers(0, 2, n).astype(np.int32),
+        sb.LOGPS: np.log(rng.uniform(0.2, 0.8, n)).astype(np.float32),
+        sb.ADVANTAGES: rng.normal(size=n).astype(np.float32),
+        sb.RETURNS: rng.normal(size=n).astype(np.float32),
+        sb.REWARDS: np.ones(n, np.float32),
+        sb.DONES: rng.random(n) < 0.05,
+        sb.NEXT_VALUES: np.append(values[1:], np.float32(0.0)),
+        sb.VALUES: values,
+    })
+
+
+def rl_transitions(rng, n, obs_dim, act):
+    """Replay transitions; ``act`` is the number of discrete actions, or
+    None for one continuous action in [-2, 2]."""
+    obs = rng.normal(size=(n, obs_dim)).astype(np.float32)
+    actions = (rng.integers(0, act, n).astype(np.int32) if act else
+               rng.uniform(-2, 2, (n, 1)).astype(np.float32))
+    return (obs, actions, rng.normal(size=n).astype(np.float32),
+            (obs + 0.1 * rng.normal(size=obs.shape)).astype(np.float32),
+            (rng.random(n) < 0.05).astype(np.float32))
+
+
+def rl_cases(seed):
+    """name -> (make(device) -> learner, update(learner) -> metrics) at the
+    JAX package's defaults; every batch from numpy with ``seed``."""
+    from ray_tpu_torch import rllib as rl
+    from ray_tpu_torch.rllib import apex, sample_batch as sb
+
+    rng = np.random.default_rng(seed)
+    spec = rl.PolicySpec(4, 2)                  # CartPole-v1, hidden (64, 64)
+    frag = rl_batch(rng, RL_FRAGMENT)
+    batch = sb.concat_batches([frag, rl_batch(rng, RL_FRAGMENT)])
+    bc_rows = {sb.OBS: batch[sb.OBS], sb.ACTIONS: batch[sb.ACTIONS]}
+    dqn_cfg = rl.DQNConfig(seed=seed)
+    buf = rl.ReplayBuffer(dqn_cfg.buffer_size, 4)
+    buf.add_batch(*rl_transitions(rng, 2000, 4, 2))
+    apex_cfg = rl.ApexDQNConfig(seed=seed)
+    shard = apex._ReplayShard(apex_cfg.buffer_size // 2, 4,
+                              apex_cfg.prioritized_replay_alpha,
+                              apex_cfg.prioritized_replay_eps, seed)
+    obs, act, rew, nxt, done = rl_transitions(rng, 2000, 4, 2)
+    shard.add_batch({"obs": obs, "actions": act, "rewards": rew,
+                     "next_obs": nxt, "dones": done},
+                    rng.uniform(0.1, 2.0, 2000))
+    apex_batch, _ = shard.sample(apex_cfg.train_batch_size,
+                                 apex_cfg.prioritized_replay_beta)
+    cspec = rl.ContinuousPolicySpec(3, 1, -2.0, 2.0)   # Pendulum-v1, 128x2
+    sac_cfg = rl.SACConfig(seed=seed)
+    cbuf = rl.ContinuousReplayBuffer(sac_cfg.buffer_size, 3, 1)
+    cbuf.add_batch(*rl_transitions(rng, 2000, 3, None))
+
+    def fresh():
+        return np.random.default_rng(seed)
+
+    ppo = rl.PPOConfig(seed=seed)
+    return {
+        "ppo": (lambda d: rl.PPOLearner(spec, ppo, device=d),
+                lambda lr: lr.update_from_batch(
+                    batch, num_epochs=ppo.num_sgd_epochs,
+                    minibatch_size=ppo.sgd_minibatch_size, rng=fresh())),
+        "a2c": (lambda d: rl.A2CLearner(spec, rl.A2CConfig(seed=seed),
+                                        device=d),
+                lambda lr: lr.update_from_batch(batch)),
+        "a2c-micro128": (lambda d: rl.A2CLearner(
+                             spec, rl.A2CConfig(seed=seed), device=d),
+                         lambda lr: lr.update_from_batch(
+                             batch, microbatch_size=128)),
+        "impala": (lambda d: rl.IMPALALearner(
+                       spec, rl.IMPALAConfig(seed=seed), device=d),
+                   lambda lr: lr.update_from_fragment(frag)),
+        "bc": (lambda d: rl.BCLearner(spec, rl.BCConfig(seed=seed),
+                                      device=d),
+               lambda lr: lr.step(bc_rows)),
+        "dqn": (lambda d: rl.DQNLearner(spec, dqn_cfg, device=d),
+                lambda lr: lr.update_from_buffer(
+                    buf, iters=dqn_cfg.num_sgd_iters,
+                    batch_size=dqn_cfg.train_batch_size, rng=fresh())),
+        "apex": (lambda d: apex.ApexDQNLearner(spec, apex_cfg, device=d),
+                 lambda lr: lr.weighted_update(apex_batch)),
+        "sac": (lambda d: rl.SACLearner(cspec, sac_cfg, device=d),
+                lambda lr: lr.update_from_buffer(
+                    cbuf, sac_cfg.num_sgd_iters, sac_cfg.train_batch_size,
+                    fresh())),
+    }
+
+
+def state_tensors(state, prefix=""):
+    """(name, tensor) of every param-like tensor in a learner's state: the
+    params, the target nets and log_alpha (not the optimizer's moments)."""
+    for k, v in state.items():
+        if k.endswith("opt_state"):
+            continue
+        if isinstance(v, dict):
+            yield from state_tensors(v, f"{prefix}{k}.")
+        elif isinstance(v, torch.Tensor):
+            yield f"{prefix}{k}", v
+
+
+def device_profile(fn):
+    """(kernels, copies, device busy ms, wall ms) of one ``fn()`` under
+    torch.profiler (device activity only): the CUDA kernels and memory
+    copies/sets it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith("Memcpy") or e.name.startswith("Memset")
+                 for e in device)
+    return (len(device) - copies, copies,
+            union_ms([e.time_range for e in device]), wall)
+
+
+def rl_learner(name, make, update):
+    """One update on the card against one on the CPU from the CPU
+    learner's state; then the card's update time and launches."""
+    cpu, dev = make("cpu"), make("cuda")
+    dev.set_state(cpu.get_state())
+    want, got = update(cpu), update(dev)
+    if set(got) != set(want):
+        raise AssertionError(f"rl {name}: metrics {sorted(got)} vs cpu "
+                             f"{sorted(want)}")
+    m_err = max(close(f"rl {name} {k}", torch.as_tensor(got[k]),
+                      torch.as_tensor(want[k]), *RL_METRIC_TOL)
+                for k in want)
+    ref = dict(state_tensors(cpu.get_state()))
+    p_err = max(close(f"rl {name} {k}", v.cpu(), ref[k], *RL_PARAM_TOL)
+                for k, v in state_tensors(dev.get_state()))
+    times = []
+    for i in range(RL_WARMUP + RL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kernels, copies, busy, wall = device_profile(lambda: update(dev))
+    ms = statistics.median(times[RL_WARMUP:])
+    log(f"rl {name}: cuda = cpu, metrics max |diff| {m_err:.3e}, params "
+        f"{p_err:.3e} (atol, rtol {RL_METRIC_TOL} / {RL_PARAM_TOL}); update "
+        f"{ms:.3f} ms (median of {RL_TIMED}; all "
+        f"{[round(t, 3) for t in times]}), {kernels} kernels + {copies} "
+        f"copies an update, device busy {busy:.3f} of {wall:.3f} ms "
+        f"profiled")
+    return {"update_ms": ms, "kernels": kernels, "copies": copies,
+            "busy_ms": busy, "profiled_wall_ms": wall, "metric_err": m_err,
+            "param_err": p_err}, dev
+
+
+def rl_step_parts(learner, batch):
+    """Where one learner step's time goes on the host: the batch's copies
+    to the card, the loss's forward, the backward, Adam, and the metrics'
+    read back, each ended by a synchronise; medians of 5 after 2."""
+    from ray_tpu_torch.rllib.algorithm import backward, floats, to_device
+
+    parts = {"to_device": [], "forward": [], "backward": [], "adam": [],
+             "read": []}
+    for i in range(RL_WARMUP + RL_TIMED):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        b = to_device(batch, learner.device)
+        mark()
+        loss, aux = learner._loss_fn(learner.policy, b)
+        mark()
+        backward(loss, learner.policy)
+        mark()
+        learner.optimizer.step()
+        mark()
+        floats(aux)
+        mark()
+        if i >= RL_WARMUP:
+            for name, t0, t1 in zip(parts, marks, marks[1:]):
+                parts[name].append((t1 - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def rl_tie(weights, obs, keys, t):
+    """The CPU's top-two gap of gumbel + logits at step ``t``."""
+    from ray_tpu_torch import random as rnd
+    from ray_tpu_torch.rllib import MLPPolicy, PolicySpec
+
+    pol = MLPPolicy(PolicySpec(4, 2), rnd.key(0, device="cpu"),
+                    device="cpu")
+    pol.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    with torch.no_grad():
+        logits, _ = pol(torch.from_numpy(obs[t][None]))
+        score = (rnd.gumbel(keys[t], logits.shape) + logits)[0].sort().values
+    return float(score[-1] - score[-2])
+
+
+def rl_fragments(seed, weights, sac_weights):
+    """One RolloutWorker and one SAC worker fragment with the policy on the
+    card, against the same workers on the CPU; returns their times."""
+    from ray_tpu_torch import random as rnd
+    from ray_tpu_torch import rllib as rl
+    from ray_tpu_torch.rllib import sac
+
+    cartpole, pendulum, which = rl_envs()
+    out = {}
+    workers = {d: rl.RolloutWorker(cartpole, rl.PolicySpec(4, 2),
+                                   rollout_fragment_length=RL_FRAGMENT,
+                                   seed=seed, device=d)
+               for d in ("cuda", "cpu")}
+    frags = {}
+    for d, w in workers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frags[d] = w.sample(weights)
+        out[f"{d}_fragment_ms"] = (time.perf_counter() - t0) * 1e3
+    got, want = frags["cuda"], frags["cpu"]
+    keys, k = [], rnd.key(seed, device="cpu")
+    for _ in range(RL_FRAGMENT):
+        k, sub = rnd.split(k)
+        keys.append(sub)
+    stop = RL_FRAGMENT
+    for t in range(RL_FRAGMENT):
+        if got["actions"][t] != want["actions"][t]:
+            margin = rl_tie(weights, want["obs"], keys, t)
+            if margin >= RL_TIE_MARGIN:
+                raise AssertionError(f"rl fragment: step {t} action "
+                                     f"{got['actions'][t]} vs cpu "
+                                     f"{want['actions'][t]}, margin {margin}")
+            stop = t
+            break
+    for col in ("obs", "actions", "dones"):
+        if not (got[col][:stop] == want[col][:stop]).all():
+            raise AssertionError(f"rl fragment: {col} differ before step "
+                                 f"{stop}")
+    err = max(close(f"rl fragment {col}", torch.from_numpy(got[col][:stop]),
+                    torch.from_numpy(want[col][:stop]), 1e-5, 1e-5)
+              for col in ("action_logp", "values", "advantages",
+                          "value_targets"))
+    # the card worker's second fragment, warm: the one timed
+    t0 = time.perf_counter()
+    workers["cuda"].sample(weights)
+    out["fragment_ms"] = (time.perf_counter() - t0) * 1e3
+    out["ms_per_env_step"] = out["fragment_ms"] / RL_FRAGMENT
+    log(f"rl fragment ok ({which}): {RL_FRAGMENT} CartPole steps, policy on "
+        f"the card = on the CPU for {stop} steps (logp, value, GAE max "
+        f"|diff| {err:.3e}), {len(got.completed_returns)} episodes; warm "
+        f"fragment {out['fragment_ms']:.1f} ms, "
+        f"{out['ms_per_env_step']:.3f} ms an env step")
+
+    swork = {d: sac._SACRolloutWorker(
+                 pendulum, rl.ContinuousPolicySpec(3, 1, -2.0, 2.0),
+                 RL_FRAGMENT, seed, device=d) for d in ("cuda", "cpu")}
+    sfr = {d: w.sample(sac_weights) for d, w in swork.items()}
+    for col in ("obs", "actions", "rewards", "next_obs", "dones"):
+        a = np.asarray(sfr["cuda"][col], np.float32)
+        if a.shape != np.shape(sfr["cpu"][col]) or not np.isfinite(a).all():
+            raise AssertionError(f"rl sac fragment: {col} {a.shape}")
+    if np.abs(sfr["cuda"]["actions"]).max() > 2.0:
+        raise AssertionError("rl sac fragment: action out of [-2, 2]")
+    # The draws differ by the few ulp of random.normal's erfinv on each
+    # device; the pendulum carries that forward, so hold the fragment to
+    # 1e-3 and print how far it got.
+    s_err = close("rl sac fragment actions",
+                  torch.from_numpy(sfr["cuda"]["actions"]),
+                  torch.from_numpy(sfr["cpu"]["actions"]), 1e-3, 0.0)
+    t0 = time.perf_counter()
+    swork["cuda"].sample(sac_weights)
+    out["sac_fragment_ms"] = (time.perf_counter() - t0) * 1e3
+    out["sac_ms_per_env_step"] = out["sac_fragment_ms"] / RL_FRAGMENT
+    log(f"rl sac fragment ok: {RL_FRAGMENT} Pendulum steps, card vs cpu "
+        f"actions max |diff| {s_err:.3e} (atol 1e-3); warm fragment "
+        f"{out['sac_fragment_ms']:.1f} ms, "
+        f"{out['sac_ms_per_env_step']:.3f} ms an env step")
+    return out
+
+
+def rl_phase(seed):
+    """Phase 11: every learner's update on the card against the CPU, its
+    time and launches; then the workers' fragments."""
+    t0 = time.perf_counter()
+    results, learners = {}, {}
+    for name, (make, update) in rl_cases(seed).items():
+        results[name], learners[name] = rl_learner(name, make, update)
+    ppo = results["ppo"]
+    ppo["step_parts_ms"] = rl_step_parts(learners["ppo"], rl_batch(
+        np.random.default_rng(seed), 128))
+    log(f"rl ppo update: device busy {ppo['busy_ms']:.3f} ms of "
+        f"{ppo['profiled_wall_ms']:.3f} ms profiled wall ({ppo['kernels']} "
+        f"kernels), unprofiled {ppo['update_ms']:.3f} ms: bound by the "
+        f"host's launches at these widths; one minibatch step's host ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ppo["step_parts_ms"].items()))
+    results["fragments"] = rl_fragments(
+        seed, learners["ppo"].get_weights(), learners["sac"].get_weights())
+    log(f"rl ok: 8 learner updates and 2 fragments in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("rl metrics: " + json.dumps(results))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1237,6 +1647,8 @@ def main() -> int:
     serve(tm, gen, se, fa, args.seed,
           os.path.join("chiprun_out", "profile_decode_step.txt")
           if args.profile else None)
+    torch.cuda.empty_cache()
+    rl_phase(args.seed)
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -12,9 +12,13 @@ Every function of the reference, in its order and under its name:
   ``adopt_slot_paged``, ``decode_step_paged``): one shared pool of
   fixed-size blocks, per-slot block tables. **Block 0 is scratch**: the
   allocator never hands it out, retired slots' tables point at it, and
-  inactive slots and pad positions write to it (several writers may hit
-  the same row; nothing reads it unmasked). Position ``p`` of a slot lives
-  at pool row ``table[p // bs] * bs + p % bs``.
+  inactive slots and pad positions write to it. Several of them hit row 0
+  in one call, and CUDA applies duplicate writes in no fixed order. A
+  decode step's idle slots and a prefill chunk's pad rows attend to row 0
+  after writing it, so there every duplicate carries the values of one
+  row (``_one_writer``): the last, which is what the reference's in-order
+  scatter leaves. Position ``p`` of a slot lives at pool row
+  ``table[p // bs] * bs + p % bs``.
 
 Kept from the reference: f32 attention logits and softmax with the finite
 ``-1e30`` mask, the probabilities cast back to the cache's dtype for the
@@ -391,18 +395,39 @@ def init_paged_pool(cfg: GPTConfig, num_blocks: int, block_size: int,
     }
 
 
-def _block_decode_paged(x, bp, layer_cache, lengths, pos, wp,
+def _one_writer(real: torch.Tensor) -> torch.Tensor:
+    """For rows whose writes land on pool rows by index: the row whose
+    values each row writes. A real row writes its own; every other row
+    (an idle slot, a pad position, all sent to scratch row 0) writes the
+    values of the last row that is not real. Duplicate writes then carry
+    the same bytes, so the order in which CUDA applies them cannot change
+    what row 0 holds, and it holds what the reference's in-order scatter
+    leaves there. Computed on the device, without a sync."""
+    idx = torch.arange(real.shape[0], device=real.device)
+    last = torch.where(real, -1, idx).max().clamp(min=0)
+    return torch.where(real, idx, last)
+
+
+def _scatter_rows(pool: torch.Tensor, rows: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """``pool[rows] = vals`` in place. Where ``rows`` repeats, the callers
+    pass equal values (``_one_writer``)."""
+    pool[rows] = vals
+
+
+def _block_decode_paged(x, bp, layer_cache, lengths, pos, wp, src,
                         cfg: GPTConfig):
     """One block over one new token per slot against the paged pool.
     ``pos`` [S, T] maps each slot's logical positions to pool rows; ``wp``
-    [S] is each slot's write row (scratch for inactive slots)."""
+    [S] is each slot's write row (scratch for inactive slots) and ``src``
+    [S] the slot whose K/V row it writes (``_one_writer``)."""
     q, k, v = _qkv(x, bp, cfg)
     if cfg.rotary:
         positions = lengths[:, None]                          # [S, 1]
         q, k = _rope_batched(q, positions), _rope_batched(k, positions)
     k_pool, v_pool = layer_cache                              # [P, H, Dh]
-    k_pool[wp] = k[:, 0]
-    v_pool[wp] = v[:, 0]
+    _scatter_rows(k_pool, wp, k[src, 0])
+    _scatter_rows(v_pool, wp, v[src, 0])
     attn = _attn_slotted(q, k_pool[pos], v_pool[pos], lengths,
                          cfg.head_dim ** -0.5)
     return _out_ffn(x, attn, bp, cfg), k_pool, v_pool
@@ -429,11 +454,12 @@ def decode_step_paged(params: Params, cache: Dict[str, Any],
     # length) resolve to the scratch block.
     page = bt.gather(1, (lengths // bs).clamp(max=M - 1)[:, None])[:, 0]
     wp = torch.where(active, page * bs + lengths % bs, 0)
+    src = _one_writer(active)
 
     x = _embed(params, tokens[:, None], lengths[:, None], cfg)
     for i, bp in enumerate(_layer_params(params["blocks"], cfg.dtype)):
         x, _, _ = _block_decode_paged(x, bp, (cache["k"][i], cache["v"][i]),
-                                      lengths, pos, wp, cfg)
+                                      lengths, pos, wp, src, cfg)
     logits = _logits(params, _final(params, x, cfg))[:, 0]
     new_lengths = lengths + active.to(torch.int64)
     nxt = _sample_one(logits, seeds, new_lengths, temperature, top_k)
@@ -469,6 +495,7 @@ def _prefill_chunk_logits(params: Params, pool: Dict[str, Any],
     logical = int(start) + torch.arange(C, device=dev)         # [C]
     real = torch.arange(C, device=dev) < int(chunk_len)
     flat = _chunk_flat_positions(block_table, logical, real, bs)
+    src = _one_writer(real)
     pos_map = (block_table[:, None] * bs +
                torch.arange(bs, device=dev)).reshape(M * bs)   # [T]
     scale = cfg.head_dim ** -0.5
@@ -479,8 +506,8 @@ def _prefill_chunk_logits(params: Params, pool: Dict[str, Any],
         q, k, v = _qkv(x, bp, cfg)
         if cfg.rotary:
             q, k = _rope(q, logical), _rope(k, logical)
-        kc[flat] = k[0]
-        vc[flat] = v[0]
+        _scatter_rows(kc, flat, k[0, src])
+        _scatter_rows(vc, flat, v[0, src])
         attn = _attn_with_cache(q, kc[pos_map][None], vc[pos_map][None],
                                 int(start), scale)
         x = _out_ffn(x, attn, bp, cfg)
@@ -521,7 +548,10 @@ def adopt_slot_paged(pool: Dict[str, Any], block_table: torch.Tensor,
     into a slot's pages, in place. Pad rows past ``true_len`` go to
     scratch, and so do rows BEFORE ``start`` (the token offset of the
     slot's shared prefix-cache prefix): a prefix-cache hit adopts only the
-    suffix rows, leaving the shared prefix blocks attention-read-only."""
+    suffix rows, leaving the shared prefix blocks attention-read-only.
+    Those rows land on scratch row 0 in no fixed order on the card, which
+    is harmless: every reader of row 0 (an idle decode slot, a chunk's pad
+    row) is in a call that writes the row first, in each layer."""
     bucket = kv["k"].shape[2]
     logical = torch.arange(bucket, device=block_table.device)
     real = logical < int(true_len)

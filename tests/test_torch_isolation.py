@@ -1,6 +1,7 @@
 """The port stands alone: no module of ray_tpu_torch, nor chip_smoke.py,
-imports jax or anything of the JAX package ray_tpu (the card's machine has
-neither), and its entry points do not drift to the CPU without a GPU."""
+imports jax, optax or anything of the JAX package ray_tpu (the card's
+machine has none of them), and its entry points do not drift to the CPU
+without a GPU."""
 
 import ast
 import pathlib
@@ -19,7 +20,7 @@ SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "ray_tpu")
+    return top in ("jax", "jaxlib", "optax", "ray_tpu")
 
 
 def _imports(path: pathlib.Path):
@@ -35,7 +36,7 @@ def _imports(path: pathlib.Path):
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "generate.py", "random.py", "paged.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "sac.py", "convert.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -52,9 +53,9 @@ def test_scan_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom ray_tpu.models import x\n"
                    "import ray_tpu\nfrom ray_tpu_torch import models\n"
-                   "def f():\n    from jax import lax\n")
+                   "def f():\n    from jax import lax\n    import optax\n")
     found = [mod for _, mod in _imports(src) if _forbidden(mod)]
-    assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax"]
+    assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax", "optax"]
 
 
 def test_engine_and_build_model_raise_without_cuda(monkeypatch):

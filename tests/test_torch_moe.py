@@ -354,6 +354,122 @@ def test_moe_prefill_slots_match_jax(routes):
     assert _n_dropped(routes) > 0
 
 
+# ------------------------------------ scratch row 0: one writer, fixed bytes
+
+
+@pytest.fixture
+def scratch_writes(monkeypatch):
+    """(rows, values) of every indexed write into a pool layer while the
+    test runs."""
+    seen = []
+    real = tg._scatter_rows
+
+    def spy(pool, rows, vals):
+        seen.append((rows.clone(), vals.clone()))
+        real(pool, rows, vals)
+
+    monkeypatch.setattr(tg, "_scatter_rows", spy)
+    return seen
+
+
+def _duplicates_carry_equal_bytes(writes):
+    """Every write's repeated rows get bit-identical values, so the order
+    in which the card applies them cannot change the pool. Returns how
+    many writes repeated a row."""
+    repeated = 0
+    for rows, vals in writes:
+        for r in rows.unique():
+            same = (rows == r).nonzero()[:, 0]
+            if len(same) > 1:
+                repeated += 1
+                assert all(torch.equal(vals[same[0]], vals[i])
+                           for i in same[1:]), int(r)
+    return repeated
+
+
+def _paged_both(tcfg, jcfg, S, M, NB, bs, bt):
+    pool = tg.init_paged_pool(tcfg, NB, bs, S, M, device="cpu")
+    jpool = jg.init_paged_pool(jcfg, NB, bs, S, M)
+    pool["block_tables"] = torch.from_numpy(bt)
+    jpool["block_tables"] = jnp.asarray(bt, jnp.int32)
+    return pool, jpool
+
+
+def _scratch_row_matches_jax(pool, jpool, bs):
+    """Scratch block 0 (row 0 written, the rest zero) as the JAX paged
+    functions leave it. The candidate writers' rows differ by far more
+    than the tolerance, so this names the writer."""
+    for name in ("k", "v"):
+        np.testing.assert_allclose(pool[name][:, :bs].numpy(),
+                                   np.asarray(jpool[name])[:, :bs],
+                                   atol=1e-5, rtol=0)
+
+
+def test_prefill_pad_rows_write_scratch_row_order_free(scratch_writes):
+    """A chunk of 6 real tokens and 10 pad rows: every pad row goes to
+    scratch row 0 with the values of the last pad row, which is the row the
+    JAX package's in-order scatter leaves there; the pad rows attend to
+    row 0 and take expert capacity, so the first token and the pool agree
+    with JAX's too."""
+    jcfg, jp, tcfg, tp = _serve_model(SERVE)
+    bs, M, S, NB, C = 4, 8, 2, 12, 16
+    bt = np.zeros((S, M), np.int64)
+    bt[1, :2] = [5, 9]
+    pool, jpool = _paged_both(tcfg, jcfg, S, M, NB, bs, bt)
+    padded = np.arange(C, dtype=np.int64)[None] * 3 % tcfg.vocab_size
+    first, kv = tg.prefill_chunk_paged(
+        tp, {"k": pool["k"], "v": pool["v"]}, torch.from_numpy(bt[1]),
+        torch.from_numpy(padded), 0, 6, 0, cfg=tcfg, block_size=bs)
+    jfirst, jkv = jg.prefill_chunk_paged(
+        jp, {"k": jpool["k"], "v": jpool["v"]}, jnp.asarray(bt[1], jnp.int32),
+        jnp.asarray(padded, jnp.int32), jnp.int32(0), jnp.int32(6),
+        jnp.int32(0), cfg=jcfg, block_size=bs)
+    assert int(first[0]) == int(jfirst[0])
+    _scratch_row_matches_jax(kv, jkv, bs)
+    np.testing.assert_allclose(kv["k"].numpy(), np.asarray(jkv["k"]),
+                               atol=1e-4)
+    assert _duplicates_carry_equal_bytes(scratch_writes) == 2 * tcfg.n_layers
+    for rows, vals in scratch_writes:
+        assert torch.equal(vals[6:], vals[C - 1].expand_as(vals[6:]))
+
+
+def test_idle_slots_write_scratch_row_order_free(scratch_writes):
+    """Decode steps with slot 2 live and slots 0, 1, 3 idle on other
+    tokens (so their K/V rows differ): every idle slot writes the K/V row
+    of the highest-numbered idle slot to scratch row 0, the writer the JAX
+    paged functions run in order leave there; every idle slot attends to
+    that row, and through expert capacity the live slot's tokens depend on
+    it."""
+    jcfg, jp, tcfg, tp = _serve_model(SERVE)
+    bs, M, S, NB = 4, 8, 4, 16
+    bt = np.zeros((S, M), np.int64)
+    bt[2, :3] = [7, 2, 11]
+    pool, jpool = _paged_both(tcfg, jcfg, S, M, NB, bs, bt)
+    lengths = np.zeros(S, np.int64)
+    lengths[2] = 5
+    pool["lengths"] = torch.from_numpy(lengths)
+    jpool["lengths"] = jnp.asarray(lengths, jnp.int32)
+    active = np.arange(S) == 2
+    last = np.asarray([17, 4, 9, 30], np.int64)
+    for _ in range(3):
+        nxt, pool = tg.decode_step_paged(
+            tp, pool, torch.from_numpy(last), torch.from_numpy(active),
+            torch.zeros(S, dtype=torch.int64), cfg=tcfg, block_size=bs)
+        jnxt, jpool = jg.decode_step_paged(
+            jp, jpool, jnp.asarray(last, jnp.int32), jnp.asarray(active),
+            jnp.zeros((S,), jnp.int32), cfg=jcfg, block_size=bs)
+        assert nxt.tolist() == np.asarray(jnxt).tolist()
+        _scratch_row_matches_jax(pool, jpool, bs)
+        last[2] = int(nxt[2])
+    np.testing.assert_allclose(pool["k"].numpy(), np.asarray(jpool["k"]),
+                               atol=1e-4)
+    assert _duplicates_carry_equal_bytes(scratch_writes) == (
+        3 * 2 * tcfg.n_layers)
+    for rows, vals in scratch_writes:
+        assert rows.tolist()[:2] == [0, 0] and rows[3] == 0
+        assert torch.equal(vals[0], vals[3]) and torch.equal(vals[1], vals[3])
+
+
 # --------------------------------------------- the engine, drop-free (C = T)
 
 DROP_FREE = dict(SERVE, model_overrides=dict(
