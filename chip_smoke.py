@@ -77,6 +77,19 @@ Phases, each printed on its own line, each fatal when it fails:
    torch.profiler. Then a CartPole-v1 and a Pendulum-v1 fragment of 200
    steps with the policy on the card, against the CPU's (gymnasium's envs
    when it imports, else numpy ones with their dynamics).
+12. rl-algo: RLlib's algorithms through ``config.build(device="cuda")`` on
+   the in-process runtime (``ray_tpu_torch/runtime.py``), learners and
+   rollout actors on the card, on the numpy CartPole and Pendulum and a
+   numpy two-agent env, at the JAX package's defaults: a few ``train()``
+   iterations of PPO, A2C, IMPALA, DQN and Ape-X (past
+   ``learning_starts``), SAC (past ``learning_starts``), multi-agent PPO and
+   BC (from JSON shards it writes first); each iteration's ms, env steps/s
+   and the learner's share. One PPO and one A2C iteration on the card
+   against the same iteration on the CPU from one seed (actions equal
+   unless a draw is a near-tie; metrics and params to phase 11's
+   tolerances); a 2-learner ``LearnerGroup`` on the card, replicas
+   bit-identical after an update; a checkpoint taken on the card restored
+   on the CPU with equal weights.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -96,7 +109,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -1153,7 +1168,11 @@ RL_TIE_MARGIN = 1e-5
 class NumpyCartPole:
     """CartPole-v1's dynamics, sizes and limits (gymnasium's
     ``cartpole.py``: Euler steps of 0.02 s, force 10, failure past 2.4 or
-    12 degrees, 500 steps), for a machine without gymnasium."""
+    12 degrees, 500 steps), for a machine without gymnasium. Its spaces are
+    stand-ins with what ``AlgorithmConfig.infer_spaces`` reads."""
+
+    observation_space = SimpleNamespace(shape=(4,))
+    action_space = SimpleNamespace(n=2)
 
     def __init__(self):
         self._rng = np.random.default_rng(0)
@@ -1185,7 +1204,12 @@ class NumpyCartPole:
 class NumpyPendulum:
     """Pendulum-v1's dynamics, sizes and limits (gymnasium's
     ``pendulum.py``: torque in [-2, 2], speed in [-8, 8], steps of 0.05 s,
-    200 steps)."""
+    200 steps), with stand-in spaces as ``NumpyCartPole``'s."""
+
+    observation_space = SimpleNamespace(shape=(3,))
+    action_space = SimpleNamespace(shape=(1,),
+                                   low=np.array([-2.0], np.float32),
+                                   high=np.array([2.0], np.float32))
 
     def __init__(self):
         self._rng = np.random.default_rng(0)
@@ -1530,6 +1554,284 @@ def rl_phase(seed):
     log("rl metrics: " + json.dumps(results))
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: RLlib's algorithms (ray_tpu_torch/rllib/*.py Algorithm subclasses)
+# through config.build(), on the in-process runtime, learners and rollout
+# actors on the card.
+
+CARD = "cuda"
+
+
+class TagTeamEnv:
+    """Toy 2-agent env (tests/test_rllib_algorithms.py's ``_TagTeamEnv``):
+    each agent sees a +/-1 cue and must answer with the matching action; one
+    agent's cue is INVERTED so the two agents need different policies."""
+
+    def __init__(self):
+        self._rng = np.random.default_rng(0)
+        self._t = 0
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        return self._draw(), {}
+
+    def _draw(self):
+        self._cue = int(self._rng.integers(0, 2))
+        obs = np.asarray([2.0 * self._cue - 1.0], np.float32)
+        return {"a0": obs, "a1": -obs}
+
+    def step(self, actions):
+        rew = {"a0": float(actions["a0"] == self._cue),
+               "a1": float(actions["a1"] == self._cue)}
+        self._t += 1
+        done = self._t >= 16
+        obs = self._draw()
+        term = {"a0": done, "a1": done, "__all__": done}
+        trunc = {"__all__": False}
+        return obs, rew, term, trunc, {}
+
+
+def tag_team_mapping(agent):
+    return "even" if agent == "a0" else "odd"
+
+
+def write_expert(path, seed):
+    """BC's dataset: 6 batches of 128 CartPole-sized observations, action
+    1 iff obs[0] > 0, to JSONL shards."""
+    from ray_tpu_torch import rllib as rl
+    from ray_tpu_torch.rllib import sample_batch as sb
+
+    rng = np.random.default_rng(seed)
+    writer = rl.JsonWriter(path)
+    for _ in range(6):
+        obs = rng.normal(size=(128, 4)).astype(np.float32)
+        writer.write(sb.SampleBatch({
+            sb.OBS: obs, sb.ACTIONS: (obs[:, 0] > 0).astype(np.int32)}))
+    writer.close()
+
+
+def rl_algo_configs(seed, data_path):
+    """name -> (config, iterations, the learner update to time). The JAX
+    package's defaults, except IMPALA's fragments (100, 4 an iteration:
+    its 8 of 200 would take 5 s an iteration); DQN, Ape-X and SAC run past
+    ``learning_starts``."""
+    from ray_tpu_torch import rllib as rl
+
+    spec = rl.PolicySpec(1, 2, (16,))
+    return {
+        "ppo": (rl.PPOConfig(seed=seed).environment(NumpyCartPole), 2,
+                "update_from_batch"),
+        "a2c": (rl.A2CConfig(seed=seed).environment(NumpyCartPole), 2,
+                "update_from_batch"),
+        "impala": (rl.IMPALAConfig(seed=seed, max_fragments_per_step=4)
+                   .environment(NumpyCartPole)
+                   .rollouts(rollout_fragment_length=100), 2,
+                   "update_from_fragment"),
+        "dqn": (rl.DQNConfig(seed=seed).environment(NumpyCartPole), 3,
+                "update_from_buffer"),
+        "apex": (rl.ApexDQNConfig(seed=seed).environment(NumpyCartPole), 4,
+                 "weighted_update"),
+        "sac": (rl.SACConfig(seed=seed).environment(NumpyPendulum), 2,
+                "update_from_buffer"),
+        "multi-agent": (rl.MultiAgentPPOConfig(seed=seed)
+                        .environment(TagTeamEnv)
+                        .multi_agent(policies={"even": spec, "odd": spec},
+                                     policy_mapping_fn=tag_team_mapping), 2,
+                        "update_from_batch"),
+        "bc": (rl.BCConfig(input_path=data_path, seed=seed,
+                           evaluation_episodes=1)
+               .environment(NumpyCartPole), 2, "step"),
+    }
+
+
+def learners_of(algo):
+    return list(getattr(algo, "learners", {"": algo.learner}).values())
+
+
+def time_updates(algo, method):
+    """Wrap ``method`` of the algorithm's learners: each call's seconds
+    (ended by a synchronise) and arguments go to the returned list."""
+    calls = []
+    for learner in learners_of(algo):
+        fn = getattr(learner, method)
+
+        def timed(*args, _fn=fn, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0, args))
+            return out
+        setattr(learner, method, timed)
+    return calls
+
+
+def rl_algo_run(name, cfg, iters, method):
+    """``iters`` iterations of ``cfg.build(device=CARD)``: each one's ms,
+    env steps/s and the learner's share of it; metrics finite."""
+    t0 = time.perf_counter()
+    algo = cfg.build(device=CARD)
+    build_s = time.perf_counter() - t0
+    calls = time_updates(algo, method)
+    rows = []
+    for it in range(iters):
+        calls.clear()
+        t0 = time.perf_counter()
+        m = algo.train()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        learner_ms = sum(t for t, _ in calls) * 1e3
+        bad = [k for k, v in m.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad or m["training_iteration"] != it + 1:
+            raise AssertionError(f"rl-algo {name}: iteration {it} {m}")
+        rows.append({"ms": ms, "env_steps": m["timesteps_this_iter"],
+                     "env_steps_per_sec": m.get("env_steps_per_sec"),
+                     "learner_ms": learner_ms,
+                     "learner_share": learner_ms / ms,
+                     "updates": len(calls)})
+        log(f"rl-algo {name} iteration {it + 1}: {ms:.1f} ms, "
+            f"{m['timesteps_this_iter']} env steps "
+            f"({(m.get('env_steps_per_sec') or 0):.1f}/s), learner "
+            f"{learner_ms:.1f} ms in {len(calls)} calls (share "
+            f"{learner_ms / ms:.3f}), episode return "
+            f"{m.get('episode_return_mean')}")
+    if sum(r["updates"] for r in rows) == 0:
+        raise AssertionError(f"rl-algo {name}: the learner never updated")
+    return algo, {"build_s": build_s, "iterations": rows}, m
+
+
+def rl_first_action_split(cfg, weights, got, want):
+    """The first index where the card's iteration batch and the CPU's took
+    other actions, checked to be a near-tie of the CPU's draw; None when
+    they agree throughout."""
+    from ray_tpu_torch import random as rnd
+
+    diff = np.flatnonzero(got["actions"] != want["actions"])
+    if not len(diff):
+        return None
+    t = int(diff[0])
+    frag = cfg.rollout_fragment_length
+    keys, k = [], rnd.key(cfg.seed + 1 + t // frag, device="cpu")
+    for _ in range(t % frag + 1):
+        k, sub = rnd.split(k)
+        keys.append(sub)
+    start = t - t % frag
+    margin = rl_tie(weights, want["obs"][start:start + frag], keys, t % frag)
+    if margin >= RL_TIE_MARGIN:
+        raise AssertionError(f"rl-algo parity: action {t} differs "
+                             f"(margin {margin})")
+    return t
+
+
+def rl_algo_parity(name, make_cfg):
+    """One iteration of ``make_cfg()`` built on the card and on the CPU from
+    one seed: the same batch (actions equal unless a draw is a near-tie),
+    metrics and params to RL_METRIC_TOL / RL_PARAM_TOL."""
+    runs = {}
+    for dev in (CARD, "cpu"):
+        algo = make_cfg().build(device=dev)
+        weights = algo.get_weights()
+        calls = time_updates(algo, "update_from_batch")
+        runs[dev] = (algo.train(), calls[0][1][0], algo.get_weights())
+        algo.stop()
+    (got, gbatch, gw), (want, wbatch, ww) = runs[CARD], runs["cpu"]
+    split = rl_first_action_split(make_cfg(), weights, gbatch, wbatch)
+    if split is not None:
+        log(f"rl-algo parity {name}: near-tie at batch row {split}; the "
+            f"iterations part there, so only rows before it are compared")
+        return {"near_tie_row": split}
+    if (got["timesteps_this_iter"], got["episode_return_mean"]) != \
+            (want["timesteps_this_iter"], want["episode_return_mean"]):
+        raise AssertionError(f"rl-algo parity {name}: {got} vs {want}")
+    keys = set(want) - {"env_steps_per_sec", "episode_return_mean"}
+    if set(got) != set(want):
+        raise AssertionError(f"rl-algo parity {name}: metrics {sorted(got)}")
+    m_err = max(close(f"rl-algo {name} {k}", torch.tensor(float(got[k])),
+                      torch.tensor(float(want[k])), *RL_METRIC_TOL)
+                for k in keys)
+    p_err = max(close(f"rl-algo {name} {k}", v.cpu(), ww[k], *RL_PARAM_TOL)
+                for k, v in gw.items())
+    log(f"rl-algo parity {name}: one iteration on the card = on the CPU, "
+        f"{got['timesteps_this_iter']} env steps with the same actions, "
+        f"metrics max |diff| {m_err:.3e}, params {p_err:.3e}")
+    return {"metric_err": m_err, "param_err": p_err}
+
+
+def rl_learner_group(seed):
+    """LearnerGroup(num_learners=2) on the card: after one update the two
+    replicas' weights are bit-identical."""
+    from ray_tpu_torch import rllib as rl
+    from ray_tpu_torch.runtime import LocalRuntime
+
+    spec, cfg, rt = rl.PolicySpec(4, 2), rl.PPOConfig(seed=seed), \
+        LocalRuntime()
+    group = rl.LearnerGroup(functools.partial(
+        rl.PPOLearner, spec, cfg, device=CARD), 2, runtime=rt)
+    start = group.get_weights()
+    group.update_from_batch(rl_batch(np.random.default_rng(seed), 256),
+                            num_epochs=1, minibatch_size=256,
+                            rng=np.random.default_rng(seed))
+    w0, w1 = rt.get([s.get_weights.remote() for s in group._shards])
+    for k in w0:
+        if not torch.equal(w0[k], w1[k]):
+            raise AssertionError(f"rl-algo learner group: replicas differ "
+                                 f"at {k}")
+    if all(torch.equal(w0[k], start[k]) for k in w0):
+        raise AssertionError("rl-algo learner group: no update")
+    group.stop()
+    log("rl-algo learner group: 2 PPO learners on the card, replicas "
+        "bit-identical after one update")
+
+
+def rl_checkpoint(algo, make_cfg, path):
+    """A checkpoint taken on the card restores on the CPU, weights equal."""
+    file = algo.save_checkpoint(path)
+    cpu = make_cfg().build(device="cpu")
+    cpu.restore_checkpoint(path)
+    want = algo.get_weights()
+    for k, v in cpu.get_weights().items():
+        if not torch.equal(v, want[k].cpu()):
+            raise AssertionError(f"rl-algo checkpoint: {k} differs")
+    if cpu.iteration != algo.iteration:
+        raise AssertionError("rl-algo checkpoint: iteration differs")
+    cpu.stop()
+    log(f"rl-algo checkpoint: {os.path.basename(file)} from the card "
+        f"restores on the CPU, weights equal")
+
+
+def rl_algo_phase(seed):
+    """Phase 12: every algorithm's train() on the card; PPO and A2C against
+    the CPU; the learner group's replicas; a checkpoint card -> CPU."""
+    from ray_tpu_torch import rllib as rl
+
+    t0 = time.perf_counter()
+    os.makedirs("chiprun_out", exist_ok=True)
+    results = {}
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        data = os.path.join(tmp, "expert")
+        write_expert(data, seed)
+        cfgs = rl_algo_configs(seed, data)
+        for name in ("ppo", "a2c"):
+            results[f"{name}_parity"] = rl_algo_parity(
+                name, lambda name=name: rl_algo_configs(seed, data)[name][0])
+        algos = {}
+        for name, (cfg, iters, method) in cfgs.items():
+            algos[name], results[name], last = rl_algo_run(
+                name, cfg, iters, method)
+        rl_learner_group(seed)
+        rl_checkpoint(algos["ppo"],
+                      lambda: rl.PPOConfig(seed=seed).environment(
+                          NumpyCartPole), os.path.join(tmp, "ckpt"))
+        for algo in algos.values():
+            algo.stop()
+    results["phase_s"] = time.perf_counter() - t0
+    log(f"rl-algo ok: 8 algorithms, 2 parity iterations, the learner group "
+        f"and a checkpoint in {results['phase_s']:.1f} s")
+    log("rl-algo metrics: " + json.dumps(results))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1649,6 +1951,7 @@ def main() -> int:
           if args.profile else None)
     torch.cuda.empty_cache()
     rl_phase(args.seed)
+    rl_algo_phase(args.seed)
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

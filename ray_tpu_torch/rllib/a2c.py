@@ -1,22 +1,24 @@
-"""A2C's config and learner (port of ``ray_tpu/rllib/a2c.py`` :23-97):
-synchronous advantage actor-critic, one gradient step on the joint batch.
-The ``A2C`` algorithm waits for the runtime seam.
+"""A2C (port of ``ray_tpu/rllib/a2c.py``): synchronous advantage
+actor-critic. ``A2C.training_step`` gathers GAE fragments from every
+rollout actor and takes one gradient step on the joint batch, so the batch
+is exactly on-policy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, Learner
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig, Learner
 from ray_tpu_torch.rllib.policy import PolicySpec
 from ray_tpu_torch.rllib.ppo import entropy_of, logp_of
+from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
 from ray_tpu_torch.rllib.sample_batch import (
-    ACTIONS, ADVANTAGES, OBS, RETURNS, SampleBatch,
+    ACTIONS, ADVANTAGES, OBS, RETURNS, SampleBatch, concat_batches,
 )
 
 
@@ -81,3 +83,31 @@ class A2CLearner(Learner):
             total += w
         self.apply_grads({name: g / total for name, g in acc.items()})
         return {k: s / total for k, s in metric_sums.items()}
+
+
+class A2C(Algorithm):
+    """The Algorithm (reference: ``a2c.py:100-131``)."""
+
+    def setup(self) -> None:
+        config = self.config
+        self.learner = A2CLearner(self.spec, config, device=self.device)
+        self.workers = self._rollout_actors(
+            RolloutWorker, config.env_creator, self.spec, gamma=config.gamma,
+            lam=config.lam,
+            rollout_fragment_length=config.rollout_fragment_length)
+
+    def training_step(self) -> Dict[str, Any]:
+        weights = self.learner.get_weights()
+        batches = self.runtime.get(
+            [w.sample.remote(weights) for w in self.workers])
+        batch = concat_batches(batches)
+        learn_metrics = self.learner.update_from_batch(
+            batch, self.config.microbatch_size)
+        return {
+            "timesteps_this_iter": batch.count,
+            "episode_return_mean": self._mean_returns_from(batches),
+            **learn_metrics,
+        }
+
+
+A2CConfig._algo_cls = A2C

@@ -1,14 +1,16 @@
-"""The shared config and learner (port of ``ray_tpu/rllib/algorithm.py``
-:25-180).
+"""The shared config, learner and algorithm (port of
+``ray_tpu/rllib/algorithm.py``).
 
-``AlgorithmConfig`` is the reference's chainable config without ``build``:
-``Algorithm`` (setup, ``training_step``, checkpoints) drives rollout actors
-through the runtime and waits for the port's runtime seam. ``Learner`` is
-the reference's learner with torch in place of jax and optax: params live in
-an ``MLPPolicy`` module on ``device`` (default ``cuda``), ``optax.adam(lr)``
-is ``torch.optim.Adam(lr)`` (the same defaults: betas 0.9/0.999, eps 1e-8
-outside the square root, bias correction), and a step is eager autograd in
-place of one jitted program.
+``AlgorithmConfig`` is the reference's chainable config; ``build`` takes
+the runtime and the devices, which are not config fields (a checkpoint
+pickles the config's fields). ``Learner`` is the reference's learner with
+torch in place of jax and optax: params live in an ``MLPPolicy`` module on
+``device`` (default ``cuda``), ``optax.adam(lr)`` is ``torch.optim.Adam(lr)``
+(the same defaults: betas 0.9/0.999, eps 1e-8 outside the square root, bias
+correction), and a step is eager autograd in place of one jitted program.
+``Algorithm`` is the reference's train loop, checkpoints and Tune adapter;
+each algorithm's ``setup`` creates its rollout actors through the runtime
+(``ray_tpu_torch/runtime.py``'s ``LocalRuntime`` unless one is given).
 
 State crosses devices and packages as plain tensors keyed by parameter
 name: ``get_weights`` -> ``{name: tensor}``, ``get_state`` ->
@@ -20,7 +22,12 @@ reference's pytrees.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+import os
+import pickle
+import time
+from typing import (
+    Any, Callable, ClassVar, Dict, Iterable, List, Optional, Tuple,
+)
 
 import numpy as np
 import torch
@@ -29,6 +36,7 @@ from torch import nn
 from ray_tpu_torch import random as rnd
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.rllib.policy import MLPPolicy, PolicySpec
+from ray_tpu_torch.runtime import LocalRuntime
 
 Batch = Dict[str, torch.Tensor]
 Tensors = Dict[str, torch.Tensor]
@@ -49,6 +57,9 @@ class AlgorithmConfig:
     # obs/action space; inferred from a probe env if None
     obs_dim: Optional[int] = None
     num_actions: Optional[int] = None
+
+    # set by each subclass to its Algorithm class (not a dataclass field)
+    _algo_cls: ClassVar[Any] = None
 
     def environment(self, env_creator) -> "AlgorithmConfig":
         self.env_creator = env_creator
@@ -92,6 +103,14 @@ class AlgorithmConfig:
         close = getattr(probe, "close", None)
         if close:
             close()
+
+    def build(self, *, runtime: Any = None, device: DeviceLike = None,
+              worker_device: DeviceLike = None) -> "Algorithm":
+        if self._algo_cls is None:
+            raise ValueError(
+                f"{type(self).__name__} is not bound to an Algorithm")
+        return self._algo_cls(self, runtime=runtime, device=device,
+                              worker_device=worker_device)
 
 
 # ---------------------------------------------------------------- helpers
@@ -239,3 +258,168 @@ class Learner:
         self.set_weights(state["params"])
         load_adam_state(self.optimizer, self.policy.named_parameters(),
                         state["opt_state"])
+
+
+# -------------------------------------------------------------- algorithm
+
+
+def on_cpu(tree: Any) -> Any:
+    """``tree`` (nested dicts) with every tensor copied to the CPU, so a
+    checkpoint restores on any device."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_state(path: str, state: Dict[str, Any]) -> str:
+    """Pickle ``state`` (tensors on the CPU) to ``path``/algorithm_state.pkl
+    and return the file's path."""
+    os.makedirs(path, exist_ok=True)
+    file = os.path.join(path, "algorithm_state.pkl")
+    with open(file, "wb") as f:
+        pickle.dump(on_cpu(state), f)
+    return file
+
+
+def load_state(path: str) -> Dict[str, Any]:
+    """What ``save_state`` wrote; ``path`` is the file or its directory."""
+    file = path if path.endswith(".pkl") else os.path.join(
+        path, "algorithm_state.pkl")
+    with open(file, "rb") as f:
+        return pickle.load(f)
+
+
+class Algorithm:
+    """Base algorithm: the train loop's bookkeeping, checkpoints and the
+    Tune adapter (reference: ``algorithm.py:183-304``).
+
+    Subclasses implement ``setup()`` (create ``self.learner`` and, through
+    ``self.runtime``, ``self.workers``) and ``training_step() -> metrics``.
+    ``runtime`` is any object with the runtime seam's calls (the
+    ``ray_tpu`` module, say); None means a new ``LocalRuntime``. The learner
+    runs on ``device`` (``cuda`` when None), the rollout actors on
+    ``worker_device`` (``device`` when None).
+    """
+
+    def __init__(self, config: AlgorithmConfig, *, runtime: Any = None,
+                 device: DeviceLike = None,
+                 worker_device: DeviceLike = None):
+        if config.env_creator is None:
+            raise ValueError(
+                f"{type(config).__name__}.environment(env_creator) required")
+        self.device = resolve_device(device)
+        self.worker_device = (self.device if worker_device is None
+                              else resolve_device(worker_device))
+        self.runtime = LocalRuntime() if runtime is None else runtime
+        self.config = config
+        config.infer_spaces()
+        self.spec = PolicySpec(config.obs_dim, config.num_actions,
+                               config.hidden)
+        self._np_rng = np.random.default_rng(config.seed)
+        self.iteration = 0
+        self.timesteps_total = 0
+        self.learner: Any = None
+        self.workers: List[Any] = []
+        self.setup()
+
+    # ------------------------------------------------------------ overrides
+
+    def setup(self) -> None:
+        raise NotImplementedError
+
+    def training_step(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ train loop
+
+    def train(self) -> Dict[str, Any]:
+        """One iteration (reference: ``algorithm.py:1309`` training_step
+        wrapped with iteration/timestep bookkeeping)."""
+        t0 = time.perf_counter()
+        metrics = self.training_step()
+        dt = time.perf_counter() - t0
+        self.iteration += 1
+        steps = metrics.get("timesteps_this_iter", 0)
+        self.timesteps_total += steps
+        metrics.setdefault("training_iteration", self.iteration)
+        metrics.setdefault("timesteps_total", self.timesteps_total)
+        if steps and "env_steps_per_sec" not in metrics:
+            metrics["env_steps_per_sec"] = steps / dt
+        return metrics
+
+    @staticmethod
+    def _mean_returns_from(batches) -> Optional[float]:
+        """Mean completed-episode return piggybacked on sample batches
+        (non-blocking: no extra call behind in-flight sample tasks)."""
+        returns: List[float] = []
+        for b in batches:
+            returns.extend(getattr(b, "completed_returns", None)
+                           or b.get("completed_returns", ()))
+        return float(np.mean(returns)) if returns else None
+
+    def _rollout_actors(self, cls: type, *args, **kwargs) -> List[Any]:
+        """``config.num_rollout_workers`` actors of ``cls`` on
+        ``worker_device``, worker i seeded ``config.seed + 1 + i``."""
+        actor_cls = self.runtime.remote(cls)
+        return [actor_cls.options(num_cpus=1).remote(
+                    *args, seed=self.config.seed + 1 + i,
+                    device=self.worker_device, **kwargs)
+                for i in range(self.config.num_rollout_workers)]
+
+    # ------------------------------------------------------------ weights
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def set_weights(self, weights) -> None:
+        self.learner.set_weights(weights)
+
+    # ------------------------------------------------------------ checkpoint
+
+    def save_checkpoint(self, path: str) -> str:
+        """Write the learner's state and the iteration counters (reference:
+        ``Algorithm.save_checkpoint``); returns the checkpoint file's path.
+        Plain pickle, every tensor on the CPU."""
+        return save_state(path, {
+            "learner_state": self.learner.get_state(),
+            "iteration": self.iteration,
+            "timesteps_total": self.timesteps_total,
+            "config": dataclasses.asdict(
+                dataclasses.replace(self.config, env_creator=None)),
+        })
+
+    def restore_checkpoint(self, path: str) -> None:
+        state = load_state(path)
+        self.learner.set_state(state["learner_state"])
+        self.iteration = state["iteration"]
+        self.timesteps_total = state["timesteps_total"]
+
+    # ------------------------------------------------------------ lifecycle
+
+    def stop(self) -> None:
+        for w in self.workers:
+            self.runtime.kill(w)
+        self.workers = []
+
+    @classmethod
+    def as_trainable(cls, base_config: AlgorithmConfig,
+                     stop_iters: int = 10, *,
+                     report: Callable[[Dict[str, Any]], Any],
+                     runtime: Any = None,
+                     device: DeviceLike = None) -> Callable:
+        """Function trainable for a Tuner (reference: Algorithm IS a
+        Trainable; here a closure that passes each iteration's metrics to
+        ``report``, such as ``ray_tpu.train.session.report``)."""
+
+        def trainable(tune_config: Dict[str, Any]):
+            cfg = dataclasses.replace(base_config, **tune_config)
+            algo = cls(cfg, runtime=runtime, device=device)
+            try:
+                for _ in range(stop_iters):
+                    report(algo.train())
+            finally:
+                algo.stop()
+
+        return trainable

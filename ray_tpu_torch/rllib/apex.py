@@ -1,12 +1,16 @@
-"""Ape-X DQN's parts that run in-process (port of ``ray_tpu/rllib/apex.py``
-:28-146 and :236-306): the config, one prioritized replay shard (numpy,
-the port's own copy), the worker's TD-error priorities, and the
-importance-weighted update.
+"""Ape-X DQN: distributed prioritized replay (port of
+``ray_tpu/rllib/apex.py``; reference: ``rllib/algorithms/apex_dqn``).
+
+Replay shards are actors; rollout workers push their experience straight
+into a shard (``shard.add_batch.remote``, no driver hop) with initial
+priorities from their own TD errors; the learner samples the shards in
+turn, takes importance-weighted double-DQN updates and sends the new
+priorities back fire-and-forget. Sampling overlaps learning: one
+``sample_and_store`` task per worker stays in flight across iterations
+and is resubmitted with fresh weights as it completes.
 
 The reference keeps the weighted update on the ``ApexDQN`` algorithm;
-here it is ``ApexDQNLearner.weighted_update``, since the algorithm (shard
-and worker actors, overlapped sampling) waits for the runtime seam. Until
-then ``_ApexWorker`` stores into shards that are in-process objects.
+here it is ``ApexDQNLearner.weighted_update``.
 """
 
 from __future__ import annotations
@@ -18,10 +22,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.rllib.algorithm import (
-    Tensors, backward, floats, to_device,
+    Algorithm, Tensors, backward, floats, to_device,
 )
 from ray_tpu_torch.rllib.dqn import (
-    DQNConfig, DQNLearner, _DQNRolloutWorker, huber, td_errors,
+    DQNConfig, DQNLearner, _DQNRolloutWorker, epsilon, huber, td_errors,
 )
 from ray_tpu_torch.rllib.policy import PolicySpec
 
@@ -136,7 +140,8 @@ class _ApexWorker(_DQNRolloutWorker):
         prios = self.td_error(batch)
         shard = self._shards[self._shard_rr % len(self._shards)]
         self._shard_rr += 1
-        shard.add_batch(batch, prios)
+        # Fire-and-forget into the shard; the ref resolves shard-side.
+        shard.add_batch.remote(batch, prios)
         return {"steps": len(batch["actions"]),
                 "completed_returns": returns}
 
@@ -159,3 +164,86 @@ class ApexDQNLearner(DQNLearner):
         out = floats({"loss": loss, "q_mean": torch.mean(q_sel)})
         out["_td_abs"] = torch.abs(td).detach().cpu().numpy()
         return out
+
+
+class ApexDQN(Algorithm):
+    """Distributed prioritized-replay DQN (reference: ``apex.py:148-306``):
+    overlapped sample/store/train with priority feedback."""
+
+    def setup(self) -> None:
+        config = self.config
+        self.learner = ApexDQNLearner(self.spec, config, device=self.device)
+        shard_cls = self.runtime.remote(_ReplayShard)
+        self.replay_shards = [
+            shard_cls.options(num_cpus=0).remote(
+                config.buffer_size // config.num_replay_shards,
+                config.obs_dim, config.prioritized_replay_alpha,
+                config.prioritized_replay_eps, config.seed + 31 * i)
+            for i in range(config.num_replay_shards)
+        ]
+        self.workers = self._rollout_actors(
+            _ApexWorker, config.env_creator, self.spec, self.replay_shards,
+            gamma=config.gamma,
+            rollout_fragment_length=config.rollout_fragment_length)
+        self._inflight: Dict[Any, Any] = {}   # sample task ref -> worker
+        self._sample_rr = 0
+
+    def training_step(self) -> Dict[str, Any]:
+        rt, c = self.runtime, self.config
+        eps = epsilon(c, self.timesteps_total)
+        weights = self.learner.get_weights()
+        # Keep one sample_and_store task in flight per worker; relaunch
+        # with fresh weights as they complete (the Ape-X overlap: env
+        # stepping never waits for the learner).
+        for w in self.workers:
+            if w not in self._inflight.values():
+                self._inflight[w.sample_and_store.remote(weights, eps)] = w
+        ready, _ = rt.wait(list(self._inflight), num_returns=1, timeout=60)
+        steps = 0
+        returns: List[float] = []
+        for ref in ready:
+            worker = self._inflight.pop(ref)
+            out = rt.get(ref)
+            steps += out["steps"]
+            returns.extend(out["completed_returns"])
+            self._inflight[worker.sample_and_store.remote(weights, eps)] = \
+                worker
+
+        # Train from the shards, feeding updated TD priorities back.
+        learn_metrics: Dict[str, float] = {}
+        sizes = rt.get([s.stats.remote() for s in self.replay_shards])
+        total = sum(int(s["size"]) for s in sizes)
+        updates = 0
+        if total >= c.learning_starts:
+            for _ in range(c.num_sgd_iters):
+                shard = self.replay_shards[
+                    self._sample_rr % len(self.replay_shards)]
+                self._sample_rr += 1
+                out = rt.get(shard.sample.remote(
+                    c.train_batch_size, c.prioritized_replay_beta))
+                if out is None:
+                    continue
+                batch, idx = out
+                learn_metrics = self.learner.weighted_update(batch)
+                shard.update_priorities.remote(
+                    idx, learn_metrics.pop("_td_abs"))
+                updates += 1
+        return {
+            "timesteps_this_iter": steps,
+            "epsilon": eps,
+            "replay_total": total,
+            "replay_shards": len(self.replay_shards),
+            "learner_updates_this_iter": updates,
+            "episode_return_mean":
+                float(np.mean(returns)) if returns else None,
+            **learn_metrics,
+        }
+
+    def stop(self) -> None:
+        for s in self.replay_shards:
+            self.runtime.kill(s)
+        self.replay_shards = []
+        super().stop()
+
+
+ApexDQNConfig._algo_cls = ApexDQN

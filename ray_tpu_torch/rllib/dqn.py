@@ -1,10 +1,12 @@
-"""DQN's config, replay buffer, learner and rollout worker (port of
-``ray_tpu/rllib/dqn.py`` :24-204).
+"""DQN (port of ``ray_tpu/rllib/dqn.py``): replay-buffer off-policy
+learning.
 
-The replay buffer is a numpy ring on the host, as in the reference.
+Epsilon-greedy ``_DQNRolloutWorker`` actors step the environments; the
+replay buffer is a numpy ring on the host, as in the reference.
 ``DQNLearner`` is the double-DQN TD update with a target network that
-copies the online params every ``target_update_freq`` updates. The ``DQN``
-algorithm waits for the runtime seam.
+copies the online params every ``target_update_freq`` updates.
+``DQN.training_step`` samples, stores, trains from replay once the buffer
+holds ``learning_starts`` transitions, and syncs the target.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from ray_tpu_torch import random as rnd
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.rllib.algorithm import (
-    AlgorithmConfig, Learner, Tensors, weights_of,
+    Algorithm, AlgorithmConfig, Learner, Tensors, weights_of,
 )
 from ray_tpu_torch.rllib.policy import MLPPolicy, PolicySpec
 
@@ -198,3 +200,49 @@ class _DQNRolloutWorker:
     def episode_returns(self) -> List[float]:
         out, self._completed = self._completed, []
         return out
+
+
+def epsilon(config: DQNConfig, timesteps: int) -> float:
+    """The exploration rate after ``timesteps`` env steps: linear from
+    ``epsilon_start`` to ``epsilon_end`` over ``epsilon_decay_steps``."""
+    frac = min(1.0, timesteps / max(1, config.epsilon_decay_steps))
+    return config.epsilon_start + frac * (config.epsilon_end
+                                          - config.epsilon_start)
+
+
+class DQN(Algorithm):
+    """The Algorithm (reference: ``dqn.py:206-253``): sample -> store ->
+    replay-train -> target sync."""
+
+    def setup(self) -> None:
+        config = self.config
+        self.learner = DQNLearner(self.spec, config, device=self.device)
+        self.buffer = ReplayBuffer(config.buffer_size, config.obs_dim)
+        self.workers = self._rollout_actors(
+            _DQNRolloutWorker, config.env_creator, self.spec,
+            rollout_fragment_length=config.rollout_fragment_length)
+
+    def training_step(self) -> Dict[str, Any]:
+        eps = epsilon(self.config, self.timesteps_total)
+        weights = self.learner.get_weights()
+        batches = self.runtime.get(
+            [w.sample.remote(weights, eps) for w in self.workers])
+        for b in batches:
+            self.buffer.add_batch(b["obs"], b["actions"], b["rewards"],
+                                  b["next_obs"], b["dones"])
+        learn_metrics: Dict[str, float] = {}
+        if self.buffer.size >= self.config.learning_starts:
+            learn_metrics = self.learner.update_from_buffer(
+                self.buffer, iters=self.config.num_sgd_iters,
+                batch_size=self.config.train_batch_size, rng=self._np_rng)
+        steps = sum(len(b["actions"]) for b in batches)
+        return {
+            "timesteps_this_iter": steps,
+            "epsilon": eps,
+            "buffer_size": self.buffer.size,
+            "episode_return_mean": self._mean_returns_from(batches),
+            **learn_metrics,
+        }
+
+
+DQNConfig._algo_cls = DQN

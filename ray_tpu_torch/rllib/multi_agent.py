@@ -1,6 +1,5 @@
-"""Multi-agent PPO's config and rollout worker (port of
-``ray_tpu/rllib/multi_agent.py`` :35-163): policy maps over one shared
-environment.
+"""Multi-agent PPO (port of ``ray_tpu/rllib/multi_agent.py``): policy maps
+over one shared environment.
 
 Environment protocol (dict-keyed by agent id):
     reset(seed=...) -> (obs_dict, info_dict)
@@ -8,12 +7,13 @@ Environment protocol (dict-keyed by agent id):
                           truncated_dict, info_dict)
 ``terminated_dict["__all__"]`` ends the episode for everyone.
 
-The worker routes every agent's experience to its policy through
+The rollout actor routes every agent's experience to its policy through
 ``policy_mapping_fn`` and computes per-agent GAE at episode end; each policy
-trains with its own ``PPOLearner`` (``policy_learners``). The
-``MultiAgentPPO`` algorithm waits for the runtime seam; until then the
-worker is an in-process object and takes the mapping function itself, where
-the reference's actor takes it pickled.
+trains with its own ``PPOLearner`` (``policy_learners``) on its own batch.
+The actor takes the mapping function itself, where the reference's takes
+it cloudpickled: the ``ray_tpu`` runtime's serializer is cloudpickle and
+carries it, and the port does not need cloudpickle on the card's machine.
+The checkpoint holds every policy's learner state, in plain pickle.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ import torch
 
 from ray_tpu_torch import random as rnd
 from ray_tpu_torch.device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, Tensors
+from ray_tpu_torch.rllib.algorithm import (
+    Algorithm, AlgorithmConfig, Tensors, load_state, save_state,
+)
 from ray_tpu_torch.rllib.policy import MLPPolicy, PolicySpec
 from ray_tpu_torch.rllib.ppo import PPOConfig, PPOLearner
 from ray_tpu_torch.rllib.sample_batch import (
@@ -177,3 +179,58 @@ class _MultiAgentRolloutWorker:
                 ADVANTAGES: adv, RETURNS: ret,
             }))
         self._traj = {}
+
+
+class MultiAgentPPO(Algorithm):
+    """The Algorithm (reference: ``multi_agent.py:165-248``)."""
+
+    def setup(self) -> None:
+        config = self.config
+        self.learners = policy_learners(config, device=self.device)
+        self.learner = next(iter(self.learners.values()))  # weights anchor
+        self.workers = self._rollout_actors(
+            _MultiAgentRolloutWorker, config.env_creator, config.policies,
+            config.policy_mapping_fn, config.gamma, config.lam,
+            config.rollout_fragment_length)
+
+    def training_step(self) -> Dict[str, Any]:
+        weights = {n: lr.get_weights() for n, lr in self.learners.items()}
+        outs = self.runtime.get([w.sample.remote(weights)
+                                 for w in self.workers])
+        steps = sum(o["steps"] for o in outs)
+        returns = [r for o in outs for r in o["episode_returns"]]
+        metrics: Dict[str, Any] = {"timesteps_this_iter": steps}
+        for name, learner in self.learners.items():
+            parts = [SampleBatch(o["batches"][name]) for o in outs
+                     if o["batches"].get(name) is not None]
+            if not parts:
+                continue
+            m = learner.update_from_batch(
+                concat_batches(parts), num_epochs=self.config.num_sgd_epochs,
+                minibatch_size=self.config.sgd_minibatch_size,
+                rng=self._np_rng)
+            for k, v in m.items():
+                metrics[f"{name}/{k}"] = v
+        metrics["episode_return_mean"] = (
+            float(np.mean(returns)) if returns else None)
+        return metrics
+
+    # Multi-policy checkpoint state (the config holds the mapping function,
+    # which plain pickle does not carry, so it stays out).
+    def save_checkpoint(self, path: str) -> str:
+        return save_state(path, {
+            "learners": {n: lr.get_state()
+                         for n, lr in self.learners.items()},
+            "iteration": self.iteration,
+            "timesteps_total": self.timesteps_total,
+        })
+
+    def restore_checkpoint(self, path: str) -> None:
+        state = load_state(path)
+        for n, s in state["learners"].items():
+            self.learners[n].set_state(s)
+        self.iteration = state["iteration"]
+        self.timesteps_total = state["timesteps_total"]
+
+
+MultiAgentPPOConfig._algo_cls = MultiAgentPPO

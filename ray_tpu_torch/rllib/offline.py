@@ -1,10 +1,11 @@
 """Offline RL: experience IO and behavior cloning (port of
-``ray_tpu/rllib/offline.py`` :28-119).
+``ray_tpu/rllib/offline.py``).
 
 ``JsonWriter`` and ``JsonReader`` are the port's own copies of the
 reference's plain-Python JSONL shards (one JSON object per SampleBatch,
 columns as lists). ``BCLearner`` maximizes the log-likelihood of dataset
-actions; the ``BC`` algorithm waits for ``Algorithm``.
+actions; ``BC`` trains it from the dataset alone, with no rollout actors,
+and ``evaluate`` rolls the greedy policy out on ``device``.
 """
 
 from __future__ import annotations
@@ -13,13 +14,13 @@ import dataclasses
 import glob as glob_mod
 import json
 import os
-from typing import Iterator
+from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, Learner
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig, Learner
 from ray_tpu_torch.rllib.policy import PolicySpec
 from ray_tpu_torch.rllib.ppo import logp_of
 from ray_tpu_torch.rllib.sample_batch import (
@@ -110,3 +111,55 @@ class BCLearner(Learner):
             return nll, {"bc_loss": nll}
 
         super().__init__(spec, config, loss_fn, device=device)
+
+
+class BC(Algorithm):
+    """Dataset-only training (reference: ``offline.py:121-171``)."""
+
+    def setup(self) -> None:
+        config = self.config
+        self.learner = BCLearner(self.spec, config, device=self.device)
+        data = JsonReader(config.input_path).read_all()
+        self._obs = np.asarray(data[OBS], np.float32)
+        self._actions = np.asarray(data[ACTIONS], np.int32)
+
+    def training_step(self) -> Dict[str, Any]:
+        n = len(self._actions)
+        bs = min(self.config.train_batch_size, n)
+        metrics: Dict[str, Any] = {}
+        for _ in range(self.config.sgd_iters_per_step):
+            idx = self._np_rng.integers(0, n, bs)
+            metrics = self.learner.step({
+                OBS: self._obs[idx], ACTIONS: self._actions[idx]})
+        out = {"timesteps_this_iter": bs
+               * self.config.sgd_iters_per_step, **metrics}
+        if self.config.evaluation_episodes:
+            out["evaluation_return_mean"] = self.evaluate(
+                self.config.evaluation_episodes)
+        return out
+
+    @torch.no_grad()
+    def evaluate(self, episodes: int) -> float:
+        """Greedy rollouts of the cloned policy (offline evaluation), the
+        policy on the learner's device."""
+        env = self.config.env_creator()
+        policy, device = self.learner.policy, self.learner.device
+        returns = []
+        for ep in range(episodes):
+            obs, _ = env.reset(seed=1000 + ep)
+            done, total = False, 0.0
+            while not done:
+                logits, _ = policy(torch.as_tensor(
+                    np.asarray(obs, np.float32)[None], device=device))
+                a = int(torch.argmax(logits[0]))
+                obs, r, term, trunc, _ = env.step(a)
+                total += float(r)
+                done = term or trunc
+            returns.append(total)
+        close = getattr(env, "close", None)
+        if close:
+            close()
+        return float(np.mean(returns))
+
+
+BCConfig._algo_cls = BC

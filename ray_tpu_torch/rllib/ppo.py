@@ -1,24 +1,28 @@
-"""PPO's config and learner (port of ``ray_tpu/rllib/ppo.py`` :27-78).
+"""PPO (port of ``ray_tpu/rllib/ppo.py``).
 
 ``PPOLearner`` is the clipped-surrogate update, minibatch SGD over epochs
-of a shuffled batch. The ``PPO`` algorithm (weights to rollout actors,
-fragments back, ``LearnerGroup`` data parallelism) waits for the runtime
-seam.
+of a shuffled batch. ``PPO.training_step`` runs the sync loop: weights to
+the rollout actors, fragments back, minibatch SGD, metrics. With
+``num_learners > 1`` the SGD runs data-parallel across learner actors
+through a ``LearnerGroup``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import functools
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, Learner
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig, Learner
+from ray_tpu_torch.rllib.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.policy import PolicySpec
+from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
 from ray_tpu_torch.rllib.sample_batch import (
-    ACTIONS, ADVANTAGES, LOGPS, OBS, RETURNS, SampleBatch,
+    ACTIONS, ADVANTAGES, LOGPS, OBS, RETURNS, SampleBatch, concat_batches,
 )
 
 
@@ -79,3 +83,45 @@ class PPOLearner(Learner):
             for sub in shuffled.minibatches(mb):
                 metrics = self.step(sub)
         return metrics
+
+
+class PPO(Algorithm):
+    """The Algorithm (reference: ``ppo.py:83-132``)."""
+
+    def setup(self) -> None:
+        config = self.config
+        if config.num_learners > 1:
+            self.learner = LearnerGroup(
+                functools.partial(PPOLearner, self.spec, config,
+                                  device=self.device),
+                config.num_learners, runtime=self.runtime)
+        else:
+            self.learner = PPOLearner(self.spec, config, device=self.device)
+        self.workers = self._rollout_actors(
+            RolloutWorker, config.env_creator, self.spec, gamma=config.gamma,
+            lam=config.lam,
+            rollout_fragment_length=config.rollout_fragment_length)
+
+    def training_step(self) -> Dict[str, Any]:
+        """Sync sample -> learn -> metrics (reference: ``algorithm.py:1309``)."""
+        weights = self.learner.get_weights()
+        batches = self.runtime.get(
+            [w.sample.remote(weights) for w in self.workers])
+        batch = concat_batches(batches)
+        learn_metrics = self.learner.update_from_batch(
+            batch, num_epochs=self.config.num_sgd_epochs,
+            minibatch_size=self.config.sgd_minibatch_size,
+            rng=self._np_rng)
+        return {
+            "timesteps_this_iter": batch.count,
+            "episode_return_mean": self._mean_returns_from(batches),
+            **learn_metrics,
+        }
+
+    def stop(self) -> None:
+        if isinstance(self.learner, LearnerGroup):
+            self.learner.stop()
+        super().stop()
+
+
+PPOConfig._algo_cls = PPO

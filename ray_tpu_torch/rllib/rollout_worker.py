@@ -5,7 +5,7 @@ Each worker owns one env instance; ``sample(weights)`` steps
 returns a GAE-postprocessed SampleBatch. Env stepping stays numpy on the
 host; the policy and its threefry key live on ``device`` (default
 ``cuda``), and each step reads its action, log-prob and value back in one
-copy. Until the runtime seam lands the worker is an in-process object.
+copy. Algorithms run workers as actors of their runtime.
 """
 
 from __future__ import annotations

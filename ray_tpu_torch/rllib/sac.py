@@ -1,4 +1,4 @@
-"""SAC for continuous control (port of ``ray_tpu/rllib/sac.py`` :26-331):
+"""SAC for continuous control (port of ``ray_tpu/rllib/sac.py``):
 twin Q critics, a tanh-squashed Gaussian actor, polyak-averaged targets and
 automatic entropy-temperature tuning toward a target entropy of
 ``-action_dim`` (Haarnoja et al. 2018 v2).
@@ -8,7 +8,8 @@ automatic entropy-temperature tuning toward a target entropy of
 reference's two Adam states (actor and critics in one, ``log_alpha`` in the
 other) and draws its reparameterized noise with the port's threefry
 ``normal``, the update's key split as the reference splits it. The replay
-buffer stays host numpy. The ``SAC`` algorithm waits for the runtime seam.
+buffer stays host numpy; ``SAC.training_step`` fills it from the rollout
+actors and trains once it holds ``learning_starts`` transitions.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from torch import nn
 from ray_tpu_torch import random as rnd
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.rllib.algorithm import (
-    AlgorithmConfig, Tensors, adam_state, floats, load_adam_state,
+    Algorithm, AlgorithmConfig, Tensors, adam_state, floats, load_adam_state,
     to_device, weights_of,
 )
 from ray_tpu_torch.rllib.policy import Dense
@@ -299,3 +300,51 @@ class _SACRolloutWorker:
                 "next_obs": np.stack(next_l),
                 "dones": np.asarray(done_l, np.float32),
                 "episode_returns": returns}
+
+
+class SAC(Algorithm):
+    """The Algorithm (reference: ``sac.py:333-383``)."""
+
+    def setup(self) -> None:
+        config = self.config
+        # Spaces (incl. Box bounds) were probed once by infer_spaces;
+        # config.hidden sizes the actor/critic MLPs.
+        self.cspec = ContinuousPolicySpec(
+            obs_dim=config.obs_dim, action_dim=config.num_actions,
+            action_low=getattr(config, "action_low", -1.0),
+            action_high=getattr(config, "action_high", 1.0),
+            hidden=tuple(config.hidden))
+        self.learner = SACLearner(self.cspec, config, device=self.device)
+        self.buffer = ContinuousReplayBuffer(
+            config.buffer_size, self.cspec.obs_dim, self.cspec.action_dim)
+        self.workers = self._rollout_actors(
+            _SACRolloutWorker, config.env_creator, self.cspec,
+            config.rollout_fragment_length)
+        self._returns: List[float] = []
+
+    def training_step(self) -> Dict[str, Any]:
+        params = self.learner.get_weights()
+        batches = self.runtime.get(
+            [w.sample.remote(params) for w in self.workers])
+        steps = 0
+        for b in batches:
+            self.buffer.add_batch(b["obs"], b["actions"], b["rewards"],
+                                  b["next_obs"], b["dones"])
+            steps += len(b["rewards"])
+            self._returns.extend(b["episode_returns"])
+        metrics: Dict[str, float] = {}
+        if self.buffer.size >= self.config.learning_starts:
+            metrics = self.learner.update_from_buffer(
+                self.buffer, self.config.num_sgd_iters,
+                self.config.train_batch_size, self._np_rng)
+        recent = self._returns[-20:]
+        return {
+            "timesteps_this_iter": steps,
+            "buffer_size": self.buffer.size,
+            "episode_return_mean":
+                float(np.mean(recent)) if recent else None,
+            **metrics,
+        }
+
+
+SACConfig._algo_cls = SAC

@@ -1,10 +1,12 @@
 """The port stands alone: no module of ray_tpu_torch, nor chip_smoke.py,
-imports jax, optax or anything of the JAX package ray_tpu (the card's
-machine has none of them), and its entry points do not drift to the CPU
-without a GPU."""
+imports jax, optax, cloudpickle or anything of the JAX package ray_tpu (the
+card's machine has none of them), and its entry points do not drift to the
+CPU without a GPU."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -20,7 +22,7 @@ SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "optax", "ray_tpu")
+    return top in ("jax", "jaxlib", "optax", "ray_tpu", "cloudpickle")
 
 
 def _imports(path: pathlib.Path):
@@ -36,7 +38,8 @@ def _imports(path: pathlib.Path):
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "generate.py", "random.py", "paged.py",
-            "chip_smoke.py", "sac.py", "convert.py"} <= names
+            "chip_smoke.py", "sac.py", "convert.py", "runtime.py",
+            "learner_group.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -47,15 +50,35 @@ def test_no_jax_or_reference_import(path):
     assert not bad, bad
 
 
+def test_importing_every_module_loads_none_of_them():
+    """Imports done at run time too: a fresh interpreter imports every
+    module of the port and loads none of the forbidden packages beyond
+    what the interpreter had loaded at start."""
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in SOURCES if p.parent != ROOT]
+    code = ("import sys\nbefore = set(sys.modules)\n" +
+            "".join(f"import {m}\n" for m in mods) +
+            "print(sorted({m.split('.')[0] for m in sys.modules} - "
+            "{m.split('.')[0] for m in before}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    loaded = ast.literal_eval(out.strip().splitlines()[-1])
+    assert "ray_tpu_torch" in loaded
+    assert not [m for m in loaded if _forbidden(m)], loaded
+
+
 def test_scan_catches_forbidden_imports(tmp_path):
     """The scan itself: each forbidden form is caught, the port's own
     package name is not."""
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom ray_tpu.models import x\n"
                    "import ray_tpu\nfrom ray_tpu_torch import models\n"
-                   "def f():\n    from jax import lax\n    import optax\n")
+                   "def f():\n    from jax import lax\n    import optax\n"
+                   "    import cloudpickle\n")
     found = [mod for _, mod in _imports(src) if _forbidden(mod)]
-    assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax", "optax"]
+    assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax", "optax",
+                     "cloudpickle"]
 
 
 def test_engine_and_build_model_raise_without_cuda(monkeypatch):

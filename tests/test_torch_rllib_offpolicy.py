@@ -33,6 +33,7 @@ from ray_tpu_torch.rllib import dqn as tdqn
 from ray_tpu_torch.rllib import multi_agent as tma
 from ray_tpu_torch.rllib import sac as tsac
 from ray_tpu_torch.rllib.sample_batch import ACTIONS, OBS
+from ray_tpu_torch.runtime import LocalRuntime
 
 METRIC_TOL = dict(atol=1e-6, rtol=1e-5)
 PARAM_TOL = dict(atol=1e-6, rtol=1e-4)
@@ -262,11 +263,17 @@ def test_apex_weighted_update_matches_jax():
     _close_trees(tl.get_state()["target_params"], jl.target_params)
 
 
+class _ReadableShard(tapex._ReplayShard):
+    def columns(self, n):
+        return self.size, self.obs[:n], self.actions[:n], self.prios[:n]
+
+
 def test_apex_worker_priorities_match_jax():
     """The worker's TD-error priorities (online net as its own target) on
-    its fragment, stored into an in-process shard."""
+    its fragment, stored into a shard actor of the in-process runtime."""
     jp, tp = _dqn_weights(8)
-    shard, _ = _shards(capacity=128, obs_dim=4)
+    rt = LocalRuntime()
+    shard = rt.remote(_ReadableShard).remote(128, 4, 1.0, 1e-6, 0)
     tw = tapex._ApexWorker(_ToyEnv, tr.PolicySpec(4, 2), [shard],
                            gamma=0.97, rollout_fragment_length=50, seed=1,
                            device="cpu")
@@ -278,11 +285,11 @@ def test_apex_worker_priorities_match_jax():
     prios = np.asarray(jw._td(jp, want["obs"], want["actions"],
                               want["rewards"], want["next_obs"],
                               want["dones"]))
-    assert out["steps"] == shard.size == 50
-    assert (shard.obs[:50] == want["obs"]).all()
-    assert (shard.actions[:50] == want["actions"]).all()
-    np.testing.assert_allclose(shard.prios[:50], np.maximum(prios, 1e-6),
-                               **PARAM_TOL)
+    size, obs, actions, stored = rt.get(shard.columns.remote(50))
+    assert out["steps"] == size == 50
+    assert (obs == want["obs"]).all()
+    assert (actions == want["actions"]).all()
+    np.testing.assert_allclose(stored, np.maximum(prios, 1e-6), **PARAM_TOL)
 
 
 # --------------------------------------------------------------------- SAC
