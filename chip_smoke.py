@@ -90,6 +90,30 @@ Phases, each printed on its own line, each fatal when it fails:
    tolerances); a 2-learner ``LearnerGroup`` on the card, replicas
    bit-identical after an update; a checkpoint taken on the card restored
    on the CPU with equal weights.
+13. serve-app: the serving tier (``ray_tpu_torch/serve/llm``: router,
+   prefill, decode and combined replicas, the KV handoff) on the in-process
+   runtime, through its ``serve`` facet. (a) One KV block at llama-7b width
+   and bucket 1024 ([32, 1, 1024, 32, 128], bf16 and f32) pickled with
+   protocol 5, the port's device-object hook as ``reducer_override`` and a
+   buffer callback: exactly one host staging copy, the bytes out of band,
+   metadata under 64 KiB; rebuilt on the card and on the CPU, each bit for
+   bit, with the copies' ms and GB/s. (b) Phase 9's sizes (llama-7b widths,
+   two layers, f32): the combined and the disaggregated app (router, one
+   prefill replica, one paged decode replica) streaming 4 prompts from 4
+   client threads give the argmax rollout of ``models.forward`` (greedy)
+   and a solo engine's streams (temperature 0.8, top_k 50);
+   ``prefill_batch_size`` 4 (one ``prefill_slots`` run) gives batch 1's
+   tokens; the first chunk is the prefill token; every adopted K/V is on
+   the card and is the published tensor itself; every KV block returned.
+   (c) llama-7b at full width and depth, bf16: the disaggregated app
+   (prefill replica with ``prefill_batch_size`` 4; decode replica paged, 8
+   slots, max_len 2048, block 16) serves phase 10's 16 prompts, 128 new
+   tokens each, greedy, from 16 client threads through ``generate_stream``.
+   Every budget met, every KV block returned, each prompt's first-token
+   logits from ``prefill_slot``'s products within ``SERVE_LOGIT_ATOL`` of
+   ``models.forward``; prints TTFT p50 and p99 (the prefill token's
+   arrival), decode tokens/s, publish + adopt ms a request, the prefill
+   replica's batched count and peak memory.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -1832,6 +1856,436 @@ def rl_algo_phase(seed):
     log("rl-algo metrics: " + json.dumps(results))
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the serving tier (replicas, router, KV handoff) on the
+# in-process runtime, through its serve facet.
+
+KV_FRAME_SHAPE = (32, 1, 1024, 32, 128)    # llama-7b K block at bucket 1024
+APP_BUCKETS = (128, 256, 512, 1024)
+# Peak device memory phase 13(c) is reckoned to need (PERF.md): two
+# replicas' bf16 weights, the decode pool, the handoffs in flight, and a
+# replica's f32 draw while it is built.
+APP_PEAK_EXPECTED_GB = 55.0
+
+
+def kv_frame():
+    """13(a): one KV block at llama-7b width through the device-object frame
+    (pickle protocol 5, the port's hook as ``reducer_override``, buffers out
+    of band), no store: one host staging copy, then a rebuild on the card
+    and one on the CPU, each bit for bit."""
+    import io
+    import pickle
+
+    from ray_tpu_torch._private import device_objects as tdo
+
+    slot = {}
+    tdo.install(lambda fn: slot.update(hook=fn))
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for dtype in (torch.bfloat16, torch.float32):
+        k = torch.randn(KV_FRAME_SHAPE, generator=gen, device="cuda").to(dtype)
+        reduced, buffers = [], []
+
+        class Pickler(pickle.Pickler):
+            def reducer_override(self, obj):
+                r = slot["hook"](obj)
+                if r is None:
+                    return NotImplemented
+                reduced.append(r)
+                return r
+
+        tdo.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with io.BytesIO() as f:
+            Pickler(f, protocol=5, buffer_callback=buffers.append).dump(k)
+            meta = f.getvalue()
+        put_ms = (time.perf_counter() - t0) * 1e3
+        stats = tdo.stats()
+        oob = sum(b.raw().nbytes for b in buffers)
+        if stats["host_materializations"] != 1 or stats["puts"] != 1 or \
+                oob < k.nbytes or len(meta) >= 64 * 1024:
+            raise AssertionError(f"kv frame {dtype}: stats {stats}, "
+                                 f"out of band {oob} B of {k.nbytes}, "
+                                 f"metadata {len(meta)} B")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = pickle.loads(meta, buffers=[b.raw() for b in buffers])
+        torch.cuda.synchronize()
+        cuda_ms = (time.perf_counter() - t0) * 1e3
+        header = json.loads(reduced[0][1][0])
+        header["device"] = "cpu"
+        t0 = time.perf_counter()
+        host = tdo.rebuild_tensor(json.dumps(header).encode(),
+                                  buffers[0].raw())
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if not (back.is_cuda and back.dtype == dtype and host.dtype == dtype
+                and host.device.type == "cpu"
+                and torch.equal(back.view(torch.uint8), k.view(torch.uint8))
+                and torch.equal(host.view(torch.uint8),
+                                k.cpu().view(torch.uint8))):
+            raise AssertionError(f"kv frame {dtype}: rebuilds differ")
+        gb = k.nbytes / 1e9
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {"bytes": k.nbytes, "put_ms": put_ms,
+                     "put_gb_per_s": gb / put_ms * 1e3, "cuda_rebuild_ms":
+                     cuda_ms, "cuda_gb_per_s": gb / cuda_ms * 1e3,
+                     "cpu_rebuild_ms": cpu_ms,
+                     "cpu_gb_per_s": gb / cpu_ms * 1e3,
+                     "metadata_bytes": len(meta)}
+        log(f"serve-app kv frame {name} {list(KV_FRAME_SHAPE)} ({k.nbytes} B):"
+            f" 1 host staging copy, {oob} B out of band, metadata "
+            f"{len(meta)} B; put {put_ms:.3f} ms ({out[name]['put_gb_per_s']:.2f}"
+            f" GB/s), rebuild on cuda {cuda_ms:.3f} ms "
+            f"({out[name]['cuda_gb_per_s']:.2f} GB/s), on the CPU "
+            f"{cpu_ms:.3f} ms ({out[name]['cpu_gb_per_s']:.2f} GB/s); both "
+            f"bit for bit")
+        del k, back, host, buffers, reduced
+    return out
+
+
+class HandoffProbe:
+    """Wraps the replicas' ``publish_kv`` and ``adopt_kv`` for one app run:
+    times each (device work synchronised), and checks every adopted K/V is
+    on the card and, in process, the tensor that was published."""
+
+    def __init__(self, rp):
+        self.rp = rp
+        self.published, self.publish_ms, self.adopt_ms = {}, [], []
+        self.adopted = 0
+
+    def __enter__(self):
+        pub, adopt = self.rp.publish_kv, self.rp.adopt_kv
+
+        def publish_kv(kv, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handoff = pub(kv, *args, **kw)
+            torch.cuda.synchronize()
+            self.publish_ms.append((time.perf_counter() - t0) * 1e3)
+            self.published[id(handoff["k_ref"])] = (kv["k"], kv["v"])
+            return handoff
+
+        def adopt_kv(handoff, **kw):
+            t0 = time.perf_counter()
+            out = adopt(handoff, **kw)
+            self.adopt_ms.append((time.perf_counter() - t0) * 1e3)
+            k, v = self.published.pop(id(handoff["k_ref"]))
+            if not (out["k"] is k and out["v"] is v):
+                raise AssertionError("serve-app: adopted K/V is not the "
+                                     "published tensor")
+            if out["k"].device.type != CARD or out["v"].device.type != CARD:
+                raise AssertionError(f"serve-app: adopted K/V on "
+                                     f"{out['k'].device}")
+            self.adopted += 1
+            return out
+
+        self.saved = pub, adopt
+        self.rp.publish_kv, self.rp.adopt_kv = publish_kv, adopt_kv
+        return self
+
+    def __exit__(self, *exc):
+        self.rp.publish_kv, self.rp.adopt_kv = self.saved
+        self.published.clear()
+
+
+def app_streams(handle, prompts, n, seeds):
+    """Every prompt through ``handle.generate_stream`` from its own client
+    thread, all at once. Returns (chunks per request, seconds from the
+    request to its first chunk)."""
+    import threading
+
+    chunks, ttft, errors = [None] * len(prompts), [None] * len(prompts), []
+    start = threading.Barrier(len(prompts))
+
+    def client(i):
+        try:
+            start.wait(timeout=60)
+            t0 = time.perf_counter()
+            stream = handle.generate_stream.remote_gen(
+                {"prompt": prompts[i], "n": n, "seed": seeds[i]})
+            got = [next(stream)]
+            ttft[i] = time.perf_counter() - t0
+            got += list(stream)
+            chunks[i] = got
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(c is None for c in chunks):
+        raise AssertionError(f"serve-app: client failed: {errors!r}")
+    return chunks, ttft
+
+
+def engine_stats(rt, name):
+    return rt.serve.get_deployment_handle(name).serve_stats.remote().result()
+
+
+def serve_app_check(tm, gen, preset="llama-7b"):
+    """13(b): phase 9's sizes (two layers, f32) through the combined and the
+    disaggregated app on the in-process runtime, token-exact."""
+    from ray_tpu_torch._private import device_objects as tdo
+    from ray_tpu_torch.runtime import LocalRuntime
+    from ray_tpu_torch.serve.llm import EngineConfig, build_llm_app
+    from ray_tpu_torch.serve.llm import replicas as rp
+
+    base = dict(preset=preset,
+                model_overrides={"n_layers": 2, "dtype": "float32"},
+                max_slots=4, max_len=320, paged_kv=True, kv_block_size=16,
+                prefill_chunk=64, max_new_tokens=16, prompt_buckets=(320,))
+    ec = EngineConfig.from_dict(base)
+    cfg, params = rp._build_model(ec, device=CARD)
+    params = gen.serving_params(params, cfg, CARD)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_CHECK_LENS]
+    n, seeds = 8, [11, 12, 13, 14]
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    rollout = []
+    with torch.no_grad():
+        for p in prompts:
+            seq = list(p)
+            for _ in range(n):
+                logits = tm.forward(params, torch.tensor([seq], device=CARD),
+                                    fwd_cfg)
+                seq.append(int(logits[0, -1].argmax()))
+            rollout.append(seq[len(p):])
+    sampled = dict(temperature=0.8, top_k=50)
+    from ray_tpu_torch.serve.llm.engine import InflightBatchEngine
+    solo = InflightBatchEngine(params, cfg, EngineConfig.from_dict(
+        dict(base, **sampled)), replica_id="app-solo", device=CARD)
+    try:
+        solo_streams = [solo.generate(p, n, seed=s)
+                        for p, s in zip(prompts, seeds)]
+    finally:
+        solo.stop()
+    del params
+
+    rt = LocalRuntime()
+    results, batches = {}, []
+
+    def run_app(label, mode, **kw):
+        name = f"app-{label}"
+        handle = rt.serve.run(build_llm_app(
+            dict(base, **kw), runtime=rt, device=CARD, mode=mode, name=name))
+        tdo.reset_stats()
+        with HandoffProbe(rp) as probe:
+            chunks, _ = app_streams(handle, prompts, n,
+                                    seeds if kw.get("temperature") else
+                                    [0] * len(prompts))
+            tokens = [[t for c in cs for t in c] for cs in chunks]
+            adopted = probe.adopted
+        pool = f"{name}-decode" if mode == "disaggregated" else \
+            f"{name}-engine"
+        left = engine_stats(rt, pool)["kv_blocks_used"]
+        stats = tdo.stats()
+        batched = engine_stats(rt, f"{name}-prefill")[
+            "prefill_batched_total"] if mode == "disaggregated" else 0
+        for dep in (name, f"{name}-prefill", f"{name}-decode",
+                    f"{name}-engine"):
+            rt.serve.delete(dep)
+        if left:
+            raise AssertionError(f"serve-app {label}: {left} blocks left")
+        if mode == "disaggregated":
+            firsts_ok = all(len(cs[0]) == 1 and cs[0][0] == t[0]
+                            for cs, t in zip(chunks, tokens))
+            if not firsts_ok or adopted != len(prompts) or \
+                    stats["local_hits"] != 2 * len(prompts) or \
+                    stats["rebuilds"] or stats["puts"]:
+                raise AssertionError(
+                    f"serve-app {label}: first chunks {chunks}, adopted "
+                    f"{adopted}, device objects {stats}")
+        results[label] = tokens
+        return tokens, batched
+
+    real = gen.prefill_slots
+
+    def spy(params, prompts_, *args, **kw):
+        batches.append(int(prompts_.shape[0]))
+        return real(params, prompts_, *args, **kw)
+
+    for label, mode in (("combined", "combined"),
+                        ("disagg", "disaggregated")):
+        got, _ = run_app(label, mode)
+        if got != rollout:
+            raise AssertionError(f"serve-app {label}: {got} != argmax "
+                                 f"rollout {rollout}")
+        got, _ = run_app(f"{label}-sampled", mode, **sampled)
+        if got != solo_streams:
+            raise AssertionError(f"serve-app {label} sampled: {got} != solo "
+                                 f"engine {solo_streams}")
+    gen.prefill_slots = spy
+    try:
+        got, batched = run_app("disagg-batch4", "disaggregated",
+                               prefill_batch_size=4,
+                               prefill_batch_window_ms=200.0)
+    finally:
+        gen.prefill_slots = real
+    if got != results["disagg"] or batched != len(prompts) or \
+            batches != [4]:
+        raise AssertionError(f"serve-app batch 4: {got} vs batch 1 "
+                             f"{results['disagg']}, batched {batched}, "
+                             f"prefill_slots runs {batches}")
+    log(f"serve-app check ok: {preset} widths, 2 layers, f32, prompts "
+        f"{list(SERVE_CHECK_LENS)}: combined and disaggregated apps = argmax "
+        f"rollout (greedy) and = a solo engine (temperature 0.8, top_k 50), "
+        f"streamed from {len(prompts)} client threads; the first chunk is "
+        f"the prefill token; prefill_batch_size 4 (one prefill_slots run of "
+        f"{batches[0]}) = batch 1; every adopted K/V on {CARD} and the "
+        f"published tensor itself; every KV block returned")
+
+
+def serve_app(tm, gen, fa, seed):
+    """13(c): the disaggregated app at full llama-7b width and depth, bf16,
+    on phase 10's 16 prompts from 16 client threads."""
+    from ray_tpu_torch._private import device_objects as tdo
+    from ray_tpu_torch.runtime import LocalRuntime
+    from ray_tpu_torch.serve.llm import build_llm_app
+    from ray_tpu_torch.serve.llm import replicas as rp
+
+    gc_collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ec = dict(preset="llama-7b", param_seed=seed, max_slots=8, max_len=2048,
+              paged_kv=True, kv_block_size=16, prefill_chunk=512,
+              prompt_buckets=APP_BUCKETS, max_new_tokens=SERVE_NEW,
+              prefill_batch_size=4, prefill_batch_window_ms=5.0)
+    rt = LocalRuntime()
+    t0 = time.perf_counter()
+    handle = rt.serve.run(build_llm_app(ec, runtime=rt, mode="disaggregated",
+                                        name="llm7b"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill = rt.serve._replicas["llm7b-prefill"][0].instance
+    cfg = prefill._cfg
+    n_params = tm.count_params(prefill._params)
+    if n_params != 5_165_776_896:
+        raise AssertionError(f"serve-app: {n_params} params")
+    prompts = serve_prompts(seed, cfg.vocab_size)
+    steps = []
+    decode = gen.decode_step_paged
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = decode(*args, **kw)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, int(args[3].sum())))
+        return out
+
+    fa.reset_launches()
+    tdo.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    gen.decode_step_paged = timed
+    try:
+        with HandoffProbe(rp) as probe:
+            t0 = time.perf_counter()
+            chunks, ttft = app_streams(handle, prompts, SERVE_NEW,
+                                       [0] * len(prompts))
+            wall = time.perf_counter() - t0
+            adopted = probe.adopted
+            handoff_ms = [p + a for p, a in zip(probe.publish_ms,
+                                                probe.adopt_ms)]
+    finally:
+        gen.decode_step_paged = decode
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    flash = {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
+    tokens = [[t for c in cs for t in c] for cs in chunks]
+    short = [i for i, t in enumerate(tokens) if len(t) != SERVE_NEW]
+    decode_stats = engine_stats(rt, "llm7b-decode")
+    batched = engine_stats(rt, "llm7b-prefill")["prefill_batched_total"]
+    if short or decode_stats["kv_blocks_used"] or adopted != len(prompts) \
+            or not all(0 <= x < cfg.vocab_size for t in tokens for x in t):
+        raise AssertionError(f"serve-app: requests {short} short of "
+                             f"{SERVE_NEW}, adopted {adopted}, decode "
+                             f"stats {decode_stats}")
+    # prefill_slot's first-token logits (the bucket-padded one-shot
+    # prefill the prefill replica runs) against models.forward.
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    errs = []
+    with torch.no_grad():
+        for p in prompts:
+            bucket = prefill._bucket_for(len(p))
+            padded = torch.zeros(1, bucket, dtype=torch.int64, device="cuda")
+            padded[0, :len(p)] = torch.tensor(p)
+            cache = gen.init_cache(cfg, 1, bucket, device="cuda")
+            logits, _ = gen._forward_cached(prefill._params, padded, cache,
+                                            cfg)
+            ref = tm.forward(prefill._params, torch.tensor([p], device="cuda"),
+                             fwd_cfg)[0, -1]
+            errs.append(close(f"prefill_slot logits ({len(p)} tokens)",
+                              logits[0, len(p) - 1], ref, SERVE_LOGIT_ATOL,
+                              0.0))
+            del cache, logits
+    for dep in ("llm7b", "llm7b-prefill", "llm7b-decode"):
+        rt.serve.delete(dep)
+    del prefill, handle
+    gc_collect()
+    step_s = sum(t for t, _ in steps)
+    out = {
+        "ttft_p50_ms": percentile(ttft, 50) * 1e3,
+        "ttft_p99_ms": percentile(ttft, 99) * 1e3,
+        "decode_tokens_per_s": sum(n for _, n in steps) / step_s,
+        "decode_step_ms": step_s / len(steps) * 1e3,
+        "decode_steps": len(steps),
+        "handoff_ms_p50": percentile(handoff_ms, 50),
+        "publish_ms_p50": percentile(probe.publish_ms, 50),
+        "adopt_ms_p50": percentile(probe.adopt_ms, 50),
+        "prefill_batched_total": batched,
+        "output_tokens_per_s": sum(map(len, tokens)) / wall,
+        "wall_s": wall, "build_s": build_s,
+        "build_peak_gb": build_peak, "serve_peak_gb": serve_peak,
+        "peak_gb": max(build_peak, serve_peak),
+        "first_logits_max_abs_err": max(errs),
+        "device_objects": tdo.stats(),
+    }
+    if out["peak_gb"] > 80:
+        raise AssertionError(f"serve-app: peak {out['peak_gb']:.2f} GB")
+    log(f"serve-app ok: llama-7b {n_params} params, bf16, disaggregated "
+        f"(router, 1 prefill replica with prefill_batch_size 4, 1 decode "
+        f"replica: paged, 8 slots, max_len 2048, block 16); {len(prompts)} "
+        f"prompts of {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"tokens x {SERVE_NEW} from {len(prompts)} client threads in "
+        f"{wall:.3f} s; TTFT p50 {out['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['ttft_p99_ms']:.1f} ms; decode "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s over {len(steps)} steps "
+        f"({out['decode_step_ms']:.3f} ms a step); publish + adopt "
+        f"{out['handoff_ms_p50']:.3f} ms a request (p50); prefill batched "
+        f"{batched} of {len(prompts)}; every budget met, every KV block "
+        f"returned, every adopted K/V on cuda; first-token logits vs "
+        f"models.forward max |diff| {max(errs):.4f} (atol "
+        f"{SERVE_LOGIT_ATOL}); flash launches {flash}; peak memory "
+        f"{out['peak_gb']:.2f} GB (build {build_peak:.2f}, serving "
+        f"{serve_peak:.2f}; reckoned {APP_PEAK_EXPECTED_GB} of 80)")
+    return out
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_app_phase(tm, gen, fa, seed):
+    """Phase 13: (a) the KV frame, (b) the exact check, (c) full width."""
+    t0 = time.perf_counter()
+    results = {"kv_frame": kv_frame()}
+    gc_collect()
+    serve_app_check(tm, gen)
+    gc_collect()
+    results["app"] = serve_app(tm, gen, fa, seed)
+    results["phase_s"] = time.perf_counter() - t0
+    log(f"serve-app phase ok in {results['phase_s']:.1f} s")
+    log("serve-app metrics: " + json.dumps(results))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1952,6 +2406,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rl_phase(args.seed)
     rl_algo_phase(args.seed)
+    serve_app_phase(tm, gen, fa, args.seed)
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The serving engine's exception types (copies of those in
+"""The serving tier's exception types (copies of those in
 ``ray_tpu/exceptions.py``, on a local base: the port imports nothing of
 ``ray_tpu``)."""
 
@@ -55,3 +55,39 @@ class EngineFailedError(RayTpuError):
     def __reduce__(self):
         return (type(self), (self.args[0] if self.args else "",),
                 {"descriptor": self.descriptor, "reason": self.reason})
+
+
+class RequestMigrationExhaustedError(ServeOverloadedError):
+    """A request was migrated across replica deaths
+    ``serve_request_max_migrations`` times and still could not complete.
+    A shed, not a silent failure (``http_status`` 503)."""
+
+    def __init__(self, message: str = "request migration budget exhausted",
+                 *, retry_after_s: float = 1.0, migrations: int = 0):
+        super().__init__(message, retry_after_s=retry_after_s,
+                         reason="migration_exhausted")
+        self.http_status = 503
+        self.migrations = int(migrations)
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",),
+                {"retry_after_s": self.retry_after_s, "reason": self.reason,
+                 "http_status": self.http_status,
+                 "migrations": self.migrations})
+
+
+class KVAdoptTimeoutError(RayTpuError, TimeoutError):
+    """``kv_transfer.adopt_kv`` could not resolve the handoff KV refs within
+    ``serve_kv_adopt_timeout_s``: the prefill replica that owns them is
+    likely dead. Typed so the disaggregated router re-runs prefill on
+    another replica instead of failing the request; a ``TimeoutError``, as
+    the reference's is through its ``GetTimeoutError``."""
+
+    def __init__(self, message: str = "KV handoff adoption timed out", *,
+                 timeout_s: float = 0.0):
+        self.timeout_s = float(timeout_s)
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",),
+                {"timeout_s": self.timeout_s})

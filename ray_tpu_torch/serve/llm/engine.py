@@ -22,16 +22,17 @@ of token chunks).
 The port keeps every method and contract of the reference: paged KV with
 block-0 scratch, chunked prefill, the prefix cache, preemption by
 recompute, cancel, poison with resume descriptors, and the
-``step_error`` / ``die`` fault injection of ``EngineConfig.fault_inject``.
-Device work runs on the engine's device (default ``cuda``; pass
-``device="cpu"`` for the CPU), in the scheduler thread, without autograd.
-Left out with the runtime they belong to: the global
-``serve_fault_inject`` knob, and the export of the metrics
-(``serve_llm_*``, kept in-process by ``ray_tpu_torch.util.metrics``) to the
-dashboard, and the prefill micro-batching fields of ``EngineConfig``
-(``prefill_batch_size``, ``prefill_batch_window_ms``), which only the
-reference's ``PrefillReplica`` reads. ``_build_model`` is the counterpart
-of ``replicas.py``'s.
+``step_error`` / ``die`` fault injection of ``EngineConfig.fault_inject``,
+with the global ``serve_fault_inject`` knob (the port's own copy,
+``ray_tpu_torch/_private/config.py``) for engines built without one.
+``EngineConfig`` also carries the prefill micro-batching fields
+(``prefill_batch_size``, ``prefill_batch_window_ms``) that
+``replicas.PrefillReplica`` reads. Device work runs on the engine's device
+(default ``cuda``; pass ``device="cpu"`` for the CPU), in the scheduler
+thread, without autograd. Left out with the runtime it belongs to: the
+export of the metrics (``serve_llm_*``, kept in-process by
+``ray_tpu_torch.util.metrics``) to the dashboard. ``_build_model`` is the
+one ``replicas.py`` delegates to.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch._private.config import config
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.exceptions import (
     EngineFailedError, KVCacheExhaustedError, ServeOverloadedError,
@@ -92,8 +94,11 @@ class EngineConfig:
     prefix_cache_enabled: bool = False  # share full-prompt-prefix KV
     #                                   blocks across requests (paged
     #                                   only; see serve/llm/paged.py)
+    # --- prefill micro-batching (PrefillReplica) ----------------------
+    prefill_batch_size: int = 1       # 1 = one prompt per program call
+    prefill_batch_window_ms: float = 2.0
     # --- deterministic fault injection (tests / chaos bench) ----------
-    fault_inject: str = ""            # "" = none;
+    fault_inject: str = ""            # "" = config.serve_fault_inject;
     #                                   "step_error:after=N" |
     #                                   "die:after_tokens=N"
 
@@ -320,9 +325,12 @@ class InflightBatchEngine:
         self._requests: Dict[str, _Request] = {}
         self._stopped = False
         self._steps = 0
-        # Deterministic fault injection (the per-engine knob; the
-        # reference's global one belongs to its runtime).
-        self._fault = _parse_fault_inject(engine_cfg.fault_inject)
+        # Deterministic fault injection: the per-engine knob wins (it is
+        # how the spec reaches replica processes, which do not inherit
+        # their caller's config); the global knob covers same-process
+        # engines.
+        self._fault = _parse_fault_inject(
+            engine_cfg.fault_inject or str(config.serve_fault_inject or ""))
         # Prefix-cache accounting (scheduler thread writes; stats()
         # readers tolerate a torn int read).
         self._prefix_hit_tokens = 0

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ray_tpu_torch, nor chip_smoke.py,
-imports jax, optax, cloudpickle or anything of the JAX package ray_tpu (the
-card's machine has none of them), and its entry points do not drift to the
-CPU without a GPU."""
+imports jax, optax, cloudpickle, msgpack or anything of the JAX package
+ray_tpu (the card's machine has none of them), and its entry points do not
+drift to the CPU without a GPU."""
 
 import ast
 import pathlib
@@ -11,6 +11,11 @@ import sys
 import pytest
 import torch
 
+from ray_tpu_torch._private import device_objects
+from ray_tpu_torch.runtime import LocalRuntime
+from ray_tpu_torch.serve.llm import (
+    DecodeReplica, LLMReplica, PrefillReplica, build_llm_app,
+)
 from ray_tpu_torch.serve.llm.engine import (
     EngineConfig, InflightBatchEngine, _build_model,
 )
@@ -22,7 +27,8 @@ SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "optax", "ray_tpu", "cloudpickle")
+    return top in ("jax", "jaxlib", "optax", "ray_tpu", "cloudpickle",
+                   "msgpack")
 
 
 def _imports(path: pathlib.Path):
@@ -39,7 +45,9 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "generate.py", "random.py", "paged.py",
             "chip_smoke.py", "sac.py", "convert.py", "runtime.py",
-            "learner_group.py"} <= names
+            "learner_group.py", "device_objects.py", "config.py",
+            "migration.py", "kv_transfer.py", "replicas.py",
+            "router.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -75,10 +83,10 @@ def test_scan_catches_forbidden_imports(tmp_path):
     src.write_text("import jax.numpy as jnp\nfrom ray_tpu.models import x\n"
                    "import ray_tpu\nfrom ray_tpu_torch import models\n"
                    "def f():\n    from jax import lax\n    import optax\n"
-                   "    import cloudpickle\n")
+                   "    import cloudpickle\n    import msgpack\n")
     found = [mod for _, mod in _imports(src) if _forbidden(mod)]
     assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax", "optax",
-                     "cloudpickle"]
+                     "cloudpickle", "msgpack"]
 
 
 def test_engine_and_build_model_raise_without_cuda(monkeypatch):
@@ -90,3 +98,36 @@ def test_engine_and_build_model_raise_without_cuda(monkeypatch):
     cfg, params = _build_model(ec, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InflightBatchEngine(params, cfg, ec)
+
+
+def test_serving_tier_raises_without_cuda(monkeypatch):
+    """The replicas, and an app built by ``build_llm_app``, default to CUDA
+    and raise without it; ``device="cpu"`` runs them on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ec = dict(preset="tiny", model_overrides={"dtype": "float32"},
+              max_slots=2, max_len=32, prompt_buckets=(16,))
+    for cls in (LLMReplica, PrefillReplica, DecodeReplica):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(ec)
+    rt = LocalRuntime()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.serve.run(build_llm_app(ec, runtime=rt, mode="combined"))
+    handle = rt.serve.run(build_llm_app(ec, runtime=rt, device="cpu",
+                                        mode="combined"))
+    assert len(handle.remote({"prompt": [1, 2], "n": 2}).result()
+               ["tokens"]) == 2
+    rt.serve.delete("llm-engine")
+
+
+def test_rebuild_goes_back_to_cuda_when_the_process_has_it(monkeypatch):
+    """``rebuild_tensor`` puts a tensor from ``cuda:i`` back on ``cuda:i``
+    when this process has that device; on the CPU only when it has not. A
+    CPU tensor comes back on the CPU."""
+    pick = device_objects._pick_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert pick({"device": "cuda:0"}) == torch.device("cuda", 0)
+    assert pick({"device": "cuda:1"}) == torch.device("cpu")
+    assert pick({"device": "cpu"}) == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pick({"device": "cuda:0"}) == torch.device("cpu")
