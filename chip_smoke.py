@@ -114,6 +114,27 @@ Phases, each printed on its own line, each fatal when it fails:
    ``models.forward``; prints TTFT p50 and p99 (the prefill token's
    arrival), decode tokens/s, publish + adopt ms a request, the prefill
    replica's batched count and peak memory.
+14. gang: the gang trainer and DD-PPO over the port's collectives
+   (``ray_tpu_torch/train``, ``parallel/collective.py``). (a)
+   ``TorchDistTrainer`` on the in-process runtime, one rank on NCCL
+   (``ScalingConfig(num_workers=1, use_gpu=True)``), trains phase 4's
+   gpt2-125m, batch and AdamW for 7 steps (loss_fn, backward,
+   ``train.torch.backward_allreduce``, the optimizer), reporting every step
+   and checkpointing at step 3: the losses equal phase 4's (to 1e-6, or to
+   phase 4's own spread between two runs in this call), the flash kernels
+   launch 24/12/12 a step under the trainer, the group's allreduce (SUM,
+   AVG, MAX), broadcast, allgather and reducescatter on a CUDA tensor are
+   exact at world 1, and a second ``fit()`` from the checkpoint gives steps
+   4-6's losses; prints the step time against phase 4's and peak memory.
+   (b) Two ranks in two ``python -c`` children on the one card, each
+   holding gpt2-125m from seed 0 and taking one step on its half of phase
+   4's batch, the gradients averaged through a ``TorchDistGroup``: NCCL
+   refuses two ranks on one device, so this world is gloo over host-staged
+   f32 buckets. Against one process's step on the whole batch: the mean
+   loss, the gradient norm and the params after AdamW; prints the buckets'
+   time. (c) DD-PPO (``collective_backend="torch_dist"``, one member) on
+   the numpy CartPole, 2 iterations on the card against the CPU from one
+   seed (phase 12's tolerances and near-tie rule).
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -483,8 +504,7 @@ def log_run(label, run, n_params, tokens_per_param=6):
 
 
 def train(tm, fa):
-    """The main path: returns the launch counts of its steps and the step
-    time."""
+    """The main path: returns its state, step, batch and ``Run``."""
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
     state = new_state(tm, cfg)
     step = tm.make_train_step(cfg)
@@ -504,7 +524,7 @@ def train(tm, fa):
         f"{ref_loss:.4f}), launches {run.launches} in "
         f"{WARMUP_STEPS + TIMED_STEPS} steps")
     log_run("train", run, n_params)
-    return state, step, batch, run.launches, run.step_ms
+    return state, step, batch, run
 
 
 # ---------------------------------------------------------------------------
@@ -2286,6 +2306,427 @@ def serve_app_phase(tm, gen, fa, seed):
     log("serve-app metrics: " + json.dumps(results))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the gang trainer (``ray_tpu_torch/train``) and DD-PPO over the
+# port's collectives (``ray_tpu_torch/parallel/collective.py``).
+
+GANG_CKPT_STEP = 3
+# The trainer's loop is phase 4's step written out (loss_fn, backward,
+# AdamW), so its losses are phase 4's to float32 determinism: 1e-6, or
+# phase 4's own spread between two runs in this call where that is larger.
+GANG_LOSS_ATOL = 1e-6
+# 14b: two ranks on half batches against one process on the whole batch.
+# The halves' bf16 products run other cuBLAS tilings than the whole
+# batch's, so logits differ by bf16 rounding (2^-8 relative) here and there;
+# over 8,192 tokens the mean loss (about 10.9) moves by far less than 1e-3,
+# and the gradient norm by well under 1e-2 relative. Each leaf's averaged
+# gradient is held to the whole batch's in relative L2 norm: rounding at
+# 2^-8 per product, spread over the leaf's entries, keeps that under
+# 2^-8 ~ 4e-3, so 1e-2; a bucket slice written into the wrong leaf gives
+# an error of order 1. AdamW's first step moves a param by about
+# lr * sign(g) whatever the gradient's size, so the params are not checked
+# against the whole batch's: the ranks' params after their step are held,
+# bit for bit, to one AdamW step taken here on the gradients rank 0
+# averaged, which shows the step consumed exactly those gradients.
+HALVES_LOSS_ATOL, HALVES_GNORM_RTOL, HALVES_GRAD_RTOL = 1e-3, 1e-2, 1e-2
+HALVES_STEP_ATOL = 0.0
+
+
+def gang_loop(config):
+    """Phase 4's model, batch and AdamW on the gang's one rank: loss_fn,
+    backward, ``train.torch.backward_allreduce``, the optimizer; a report
+    every step and a checkpoint (params and optimizer state) at
+    GANG_CKPT_STEP. Resumes after a checkpoint's step. On its first step it
+    checks the group's ops on a CUDA tensor through NCCL at world 1."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.parallel import collective
+    from ray_tpu_torch.train import torch as rt_torch
+
+    dev = rt_train.get_device()
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    state = new_state(tm, cfg)
+    leaves = tt.tree_leaves(state.params)
+    opt = state.opt_state
+    start = 0
+    ckpt = rt_train.get_checkpoint()
+    if ckpt is not None:
+        saved = ckpt.to_pytree(device=dev)
+        with torch.no_grad():
+            for p, q in zip(leaves, tt.tree_leaves(saved["params"])):
+                p.copy_(q)
+        opt.load_state_dict(saved["opt"])
+        start = ckpt.to_dict()["step"] + 1
+    else:
+        g = collective.get_group(
+            rt_train.session._get_session().collective_group_name)
+        if not (isinstance(g, collective.TorchDistGroup)
+                and dist.get_backend() == "nccl" and g.world_size == 1):
+            raise AssertionError(f"gang: group {type(g).__name__} on "
+                                 f"{dist.get_backend()}")
+        x = torch.arange(8.0, device=dev)
+        outs = {f"allreduce-{op}": g.allreduce(x, op=collective.ReduceOp[op])
+                for op in ("SUM", "AVG", "MAX")}
+        outs.update(broadcast=g.broadcast(x), allgather=g.allgather(x)[0],
+                    reducescatter=g.reducescatter(x))
+        for name, out in outs.items():
+            if out.device != dev or not torch.equal(out, x):
+                raise AssertionError(f"gang: NCCL {name} gave {out}")
+    batch = train_batch(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(start, config["steps"]):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = tm.loss_fn(state.params, batch, cfg)
+        loss.backward()
+        rt_torch.backward_allreduce(leaves)
+        opt.step()
+        value = loss.item()                      # waits for the step
+        dt = time.perf_counter() - t0
+        rt_train.report(
+            {"step": step, "loss": value, "s": dt,
+             "peak": torch.cuda.max_memory_allocated()},
+            checkpoint=rt_train.Checkpoint.from_pytree(
+                {"params": state.params, "opt": opt.state_dict()},
+                extra={"step": step}) if step == GANG_CKPT_STEP else None)
+
+
+def gang_fit(fa, storage, resume=None):
+    """One ``TorchDistTrainer.fit()`` of ``gang_loop`` on the in-process
+    runtime, NCCL, one GPU rank; (result, flash launches in it)."""
+    from ray_tpu_torch import train as rt_train
+
+    trainer = rt_train.TorchDistTrainer(
+        gang_loop, train_loop_config={"steps": WARMUP_STEPS + TIMED_STEPS},
+        scaling_config=rt_train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=rt_train.RunConfig(name="gang", storage_path=storage),
+        backend="torch_dist", resume_from_checkpoint=resume)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    result = trainer.fit()
+    launches = {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
+    if not result.ok:
+        raise AssertionError(f"gang: fit failed: {result.error}")
+    return result, launches
+
+
+def gang_trainer(tm, fa, run):
+    """14a: the gang trainer on the card at phase 4's size."""
+    # Phase 4's own spread: its steps again, from the same seed.
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
+                      train_batch(cfg.vocab_size), "gang phase-4 again",
+                      cfg.n_layers)
+    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
+    tol = max(GANG_LOSS_ATOL, spread)
+    del again
+    gc_collect()
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as storage:
+        result, launches = gang_fit(fa, storage)
+        hist = result.metrics_history
+        losses = [m["loss"] for m in hist]
+        steps = WARMUP_STEPS + TIMED_STEPS
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers}
+        for name, per_step in want.items():
+            if launches[name] != per_step * steps:
+                raise AssertionError(f"gang: {name} launched "
+                                     f"{launches[name]} times in {steps} "
+                                     f"steps, want {per_step} per step")
+        err = max(abs(a - b) for a, b in zip(losses, run.losses))
+        if len(losses) != steps or err > tol:
+            raise AssertionError(f"gang: losses {losses} vs phase 4's "
+                                 f"{run.losses} (tol {tol})")
+        if result.checkpoint.to_dict()["step"] != GANG_CKPT_STEP:
+            raise AssertionError("gang: no checkpoint at step 3")
+        gc_collect()
+        resumed, resumed_launches = gang_fit(fa, storage, result.checkpoint)
+        for name, per_step in want.items():
+            if resumed_launches[name] != per_step * (steps - GANG_CKPT_STEP
+                                                     - 1):
+                raise AssertionError(f"gang: resumed {name} launched "
+                                     f"{resumed_launches[name]} times")
+        tail = [m["loss"] for m in resumed.metrics_history]
+        resume_err = max(abs(a - b) for a, b in
+                         zip(tail, losses[GANG_CKPT_STEP + 1:]))
+        if [m["step"] for m in resumed.metrics_history] != list(
+                range(GANG_CKPT_STEP + 1, steps)) or resume_err > tol:
+            raise AssertionError(f"gang: resumed losses {tail} vs "
+                                 f"{losses[GANG_CKPT_STEP + 1:]}")
+    step_ms = statistics.median(m["s"] for m in hist[WARMUP_STEPS:]) * 1e3
+    out = {"losses": losses, "loss_err": err, "tol": tol,
+           "phase4_spread": spread, "resume_err": resume_err,
+           "launches": launches, "resumed_launches": resumed_launches,
+           "step_ms": step_ms, "phase4_step_ms": run.step_ms,
+           "overhead_ms": step_ms - run.step_ms,
+           "peak_gb": max(m["peak"] for m in hist) / 1e9}
+    log(f"gang-train ok: TorchDistTrainer, 1 rank on NCCL, gpt2-125m "
+        f"batch {B} seq {L}: losses = phase 4's within {err:.3e} (tol "
+        f"{tol:.1e}; phase 4 against itself {spread:.3e}); launches "
+        f"{launches} in {steps} steps; resumed at step {GANG_CKPT_STEP + 1} "
+        f"within {resume_err:.3e}; NCCL allreduce SUM/AVG/MAX, broadcast, "
+        f"allgather, reducescatter at world 1 exact")
+    log(f"gang-train step_ms {step_ms:.2f} (median of {TIMED_STEPS}; all "
+        f"{[round(m['s'] * 1e3, 2) for m in hist]}), phase 4 "
+        f"{run.step_ms:.2f} ms, trainer overhead {step_ms - run.step_ms:.2f}"
+        f" ms a step, peak memory {out['peak_gb']:.2f} GB; card: "
+        f"{gpu_line()}")
+    return out
+
+
+GANG_RANK_SRC = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from ray_tpu_torch import models as tm
+from ray_tpu_torch.models import transformer as tt
+from ray_tpu_torch.parallel import collective
+from ray_tpu_torch.train import torch as rt_torch
+import functools
+rank, world, addr, out = int(sys.argv[1]), 2, sys.argv[2], sys.argv[3]
+g = collective.TorchDistGroup(world, rank, "halves", device="cpu",
+                              address=addr)
+cfg = tm.GPTConfig.preset("gpt2-125m", max_seq={L}, flash_attention=True)
+state = tm.make_train_state(
+    cfg, functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.1),
+    generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+toks = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab_size, ({B}, {L} + 1))).cuda().chunk(world)[rank]
+leaves = tt.tree_leaves(state.params)
+loss = tm.loss_fn(state.params, {{"inputs": toks[:, :-1],
+                                  "targets": toks[:, 1:]}}, cfg)
+loss.backward()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+rt_torch.backward_allreduce(leaves, group=g)
+torch.cuda.synchronize()
+bucket_s = time.perf_counter() - t0
+gnorm = torch.linalg.vector_norm(torch.stack(
+    [torch.linalg.vector_norm(p.grad) for p in leaves])).item()
+if rank == 0:
+    torch.save([p.grad.detach().cpu() for p in leaves],
+               os.path.join(out, "grads.pt"))
+state.opt_state.step()
+mean = g.allreduce(loss.detach().cpu().reshape(1),
+                   op=collective.ReduceOp.AVG).item()
+marks = torch.stack([torch.stack([p.double().sum(), p.double().square().sum()])
+                     for p in leaves]).cpu()
+same = torch.equal(g.allreduce(marks, op=collective.ReduceOp.MAX),
+                   g.allreduce(marks, op=collective.ReduceOp.MIN))
+if rank == 0:
+    torch.save([p.detach().cpu() for p in leaves],
+               os.path.join(out, "params.pt"))
+with open(os.path.join(out, f"rank{{rank}}.json"), "w") as f:
+    json.dump({{"loss": loss.item(), "mean_loss": mean, "grad_norm": gnorm,
+               "bucket_s": bucket_s, "ranks_equal": same,
+               "backend": torch.distributed.get_backend()}}, f)
+g.destroy()
+"""
+
+
+def gang_halves(tm):
+    """14b: two ranks in two processes on the one card, each on half of
+    phase 4's batch, gradients averaged through a ``TorchDistGroup``,
+    against one process's step on the whole batch. NCCL refuses two ranks
+    on one device, so this world is gloo over host-staged f32 buckets
+    (``backward_allreduce`` copies each bucket to the group's device, the
+    CPU, and back); NCCL across ranks is not exercised on one card."""
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.parallel.collective import _free_port
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    src = GANG_RANK_SRC.format(repo=repo, B=B, L=L)
+    addr = f"127.0.0.1:{_free_port()}"
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as out:
+        logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+                for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", src, str(r), addr,
+                                   out], stdout=f, stderr=subprocess.STDOUT)
+                 for r, f in enumerate(logs)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        wall_s = time.perf_counter() - t0
+        if rcs != [0, 0]:
+            tails = [open(os.path.join(out, f"rank{r}.log")).read()[-3000:]
+                     for r in range(2)]
+            raise AssertionError(f"gang-halves: ranks exited {rcs}: {tails}")
+        ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+                 for r in range(2)]
+        got = torch.load(os.path.join(out, "params.pt"), weights_only=True)
+        grads = torch.load(os.path.join(out, "grads.pt"), weights_only=True)
+    # One process, the whole batch, the same model.
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    state = new_state(tm, cfg)
+    loss = tm.loss_fn(state.params, train_batch(cfg.vocab_size), cfg)
+    loss.backward()
+    leaves = tt.tree_leaves(state.params)
+    gnorm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad) for p in leaves])).item()
+    grad_errs = []
+    for i, (a, p) in enumerate(zip(grads, leaves)):
+        a = a.cuda()
+        if a.shape != p.grad.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"gang-halves grad {i}: shape "
+                                 f"{tuple(a.shape)} or non-finite values")
+        grad_errs.append((torch.linalg.vector_norm(a - p.grad) / max(
+            torch.linalg.vector_norm(p.grad).item(), 1e-30)).item())
+    worst = max(range(len(grad_errs)), key=grad_errs.__getitem__)
+    if grad_errs[worst] > HALVES_GRAD_RTOL:
+        raise AssertionError(f"gang-halves: leaf {worst}'s averaged gradient"
+                             f" is {grad_errs[worst]:.3e} from the whole "
+                             f"batch's in relative L2 (rtol "
+                             f"{HALVES_GRAD_RTOL})")
+    # AdamW's step on the gradients the ranks averaged.
+    with torch.no_grad():
+        for a, p in zip(grads, leaves):
+            p.grad.copy_(a)
+    state.opt_state.step()
+    if not all(r["ranks_equal"] and r["backend"] == "gloo" for r in ranks):
+        raise AssertionError(f"gang-halves: ranks differ {ranks}")
+    loss_err = abs(ranks[0]["mean_loss"] - loss.item())
+    gnorm_err = abs(ranks[0]["grad_norm"] - gnorm) / gnorm
+    if loss_err > HALVES_LOSS_ATOL or gnorm_err > HALVES_GNORM_RTOL:
+        raise AssertionError(f"gang-halves: loss {ranks[0]['mean_loss']} vs "
+                             f"{loss.item()}, grad norm "
+                             f"{ranks[0]['grad_norm']} vs {gnorm}")
+    param_err = max(close(f"gang-halves param {i}", a.cuda(), b.detach(),
+                          HALVES_STEP_ATOL, 0.0)
+                    for i, (a, b) in enumerate(zip(got, leaves)))
+    nbytes = sum(p.numel() for p in leaves) * 4
+    out = {"mean_loss": ranks[0]["mean_loss"], "full_loss": loss.item(),
+           "loss_err": loss_err, "grad_norm": ranks[0]["grad_norm"],
+           "full_grad_norm": gnorm, "grad_norm_rel_err": gnorm_err,
+           "leaf_grad_rel_err_max": grad_errs[worst],
+           "leaf_grad_rel_err_median": statistics.median(grad_errs),
+           "step_param_err": param_err,
+           "bucket_s": [r["bucket_s"] for r in ranks],
+           "grad_bytes": nbytes, "wall_s": wall_s}
+    log(f"gang-halves ok: 2 ranks x {B // 2} x {L} on one card over gloo, "
+        f"mean loss {ranks[0]['mean_loss']:.6f} vs whole batch "
+        f"{loss.item():.6f} (|diff| {loss_err:.3e}, atol "
+        f"{HALVES_LOSS_ATOL}), grad norm rel err {gnorm_err:.3e} (rtol "
+        f"{HALVES_GNORM_RTOL}), {len(grad_errs)} leaves' averaged gradients"
+        f" within {grad_errs[worst]:.3e} relative L2 of the whole batch's "
+        f"(median {out['leaf_grad_rel_err_median']:.3e}, rtol "
+        f"{HALVES_GRAD_RTOL}), params after AdamW = AdamW of those "
+        f"gradients within {param_err:.3e} (atol {HALVES_STEP_ATOL}); "
+        f"ranks equal")
+    log(f"gang-halves buckets: {nbytes / 1e6:.1f} MB of f32 gradients "
+        f"through gloo in {[round(s * 1e3, 1) for s in out['bucket_s']]} ms"
+        f" ({nbytes / 1e9 / max(out['bucket_s']):.3f} GB/s); both ranks "
+        f"{wall_s:.1f} s from spawn to exit; card: {gpu_line()}")
+    return out
+
+
+def ddppo_run(dev, seed):
+    """Two iterations of DD-PPO on ``torch_dist`` with one member on the
+    in-process runtime: each iteration's metrics and ms, each fragment's
+    first key, weights and batch, and the final weights."""
+    from ray_tpu_torch import rllib as rl
+
+    algo = rl.DDPPOConfig(collective_backend="torch_dist",
+                          num_rollout_workers=1, seed=seed).environment(
+        NumpyCartPole).build(device=dev)
+    sampler = algo.workers[0]._instance.sampler   # an in-process actor
+    sample, samples = sampler.sample, []
+
+    def recorded(weights):
+        key = sampler._rng.cpu()
+        batch = sample(weights)
+        samples.append((key, {k: v.cpu() for k, v in weights.items()},
+                        batch))
+        return batch
+
+    sampler.sample = recorded
+    iters = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = algo.train()
+        if dev == CARD:
+            torch.cuda.synchronize()
+        iters.append((m, (time.perf_counter() - t0) * 1e3))
+    weights = {k: v.cpu() for k, v in algo.get_weights().items()}
+    algo.stop()
+    return iters, samples, weights
+
+
+def ddppo_phase(seed):
+    """14c: DD-PPO on the card against the same run on the CPU."""
+    from ray_tpu_torch import random as rnd
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS, OBS
+
+    card = ddppo_run(CARD, seed)
+    cpu = ddppo_run("cpu", seed)
+    out = {"iteration_ms": [ms for _, ms in card[0]],
+           "cpu_iteration_ms": [ms for _, ms in cpu[0]]}
+    m_err = 0.0
+    for it in range(2):
+        (got, _), (want, _) = card[0][it], cpu[0][it]
+        key, weights, want_b = cpu[1][it]
+        diff = np.flatnonzero(card[1][it][2][ACTIONS] != want_b[ACTIONS])
+        if len(diff):
+            t, keys = int(diff[0]), []
+            for _ in range(t + 1):
+                key, sub = rnd.split(key)
+                keys.append(sub)
+            margin = rl_tie(weights, want_b[OBS], keys, t)
+            if margin >= RL_TIE_MARGIN:
+                raise AssertionError(f"ddppo: iteration {it} action {t} "
+                                     f"differs (margin {margin})")
+            log(f"ddppo parity: near-tie at iteration {it} row {t}; the "
+                f"runs part there, so only what came before is compared")
+            out["near_tie"] = [it, t]
+            break
+        if got["timesteps_this_iter"] != want["timesteps_this_iter"]:
+            raise AssertionError(f"ddppo: {got} vs {want}")
+        for k in set(want) - {"env_steps_per_sec", "episode_return_mean"}:
+            m_err = max(m_err, close(f"ddppo {k}", torch.tensor(
+                float(got[k])), torch.tensor(float(want[k])),
+                *RL_METRIC_TOL))
+    else:
+        out["param_err"] = max(close(f"ddppo {k}", v, cpu[2][k],
+                                     *RL_PARAM_TOL)
+                               for k, v in card[2].items())
+    out["metric_err"] = m_err
+    log(f"ddppo ok: DDPPOConfig(collective_backend='torch_dist', 1 member) "
+        f"on the card = on the CPU over 2 iterations (metrics {m_err:.3e}, "
+        f"params {out.get('param_err')}); iteration ms "
+        f"{[round(x, 1) for x in out['iteration_ms']]} (CPU "
+        f"{[round(x, 1) for x in out['cpu_iteration_ms']]}); card: "
+        f"{gpu_line()}")
+    return out
+
+
+def gang_phase(tm, fa, run, seed):
+    """Phase 14: (a) the gang trainer, (b) two ranks on one card, (c)
+    DD-PPO."""
+    t0 = time.perf_counter()
+    os.makedirs("chiprun_out", exist_ok=True)
+    results = {"trainer": gang_trainer(tm, fa, run)}
+    gc_collect()
+    results["halves"] = gang_halves(tm)
+    gc_collect()
+    results["ddppo"] = ddppo_phase(seed)
+    results["phase_s"] = time.perf_counter() - t0
+    log(f"gang phase ok in {results['phase_s']:.1f} s")
+    log("gang metrics: " + json.dumps(results))
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2359,7 +2800,8 @@ def main() -> int:
         return 0
 
     check_forward(tm)
-    state, step, batch, launches, step_ms = train(tm, fa)
+    state, step, batch, run = train(tm, fa)
+    launches, step_ms = run.launches, run.step_ms
     if args.profile:
         profile_step(state, step, batch,
                      os.path.join("chiprun_out", "profile_train_step.txt"),
@@ -2407,6 +2849,9 @@ def main() -> int:
     rl_phase(args.seed)
     rl_algo_phase(args.seed)
     serve_app_phase(tm, gen, fa, args.seed)
+    gang = gang_phase(tm, fa, run, args.seed)
+    for row in rows:
+        row["trainer_launches"] = gang["trainer"]["launches"][row["name"]]
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 The JAX package ``ray_tpu`` is the reference; module names here mirror it
 (``ops.attention``, ``ops.flash_attention``, ``models.transformer``,
-``models.generate``, ``serve.llm``, ``rllib``) so each counterpart is easy
-to find; ``random`` repeats the threefry ``jax.random`` the serving path
+``models.generate``, ``serve.llm``, ``rllib``, ``parallel.collective``,
+``train``) so each counterpart is easy to find; ``random`` repeats the threefry ``jax.random`` the serving path
 and the RL policies sample with. This package imports ``torch`` and numpy,
 never ``jax`` or ``optax`` and nothing of ``ray_tpu``. Its kernels are
 CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use

@@ -1,5 +1,6 @@
-"""The port's copy of the four ``ray_tpu/_private/config.py`` knobs its
-serving tier reads, under the reference's names and defaults. Each can be
+"""The port's copy of the ``ray_tpu/_private/config.py`` knobs its serving
+tier, collectives and gang trainer read, under the reference's names and
+defaults. Each can be
 overridden per process with a ``RAY_TPU_<NAME>`` environment variable, as
 the reference's are, and in code with ``config.set(name, value)``."""
 
@@ -24,6 +25,25 @@ _DEFAULTS: Dict[str, Any] = {
     # ``EngineConfig.fault_inject`` ("step_error:after=N" |
     # "die:after_tokens=N").
     "serve_fault_inject": "",
+    # Gang fault tolerance (``parallel/collective.py``, ``train/``): the
+    # supervisor pings each member, and each collective member polls its
+    # group's poison flag, at this period.
+    "gang_heartbeat_s": 1.0,
+    # Missed pings before a wedged-but-alive member is declared dead.
+    "gang_ping_miss_limit": 30,
+    # Deadline for one WorkerGroup.poll() round across all members.
+    "gang_poll_timeout_s": 30.0,
+    # Exponential backoff between gang re-formations, and its cap.
+    "gang_restart_backoff_s": 0.5,
+    "gang_restart_backoff_max_s": 30.0,
+    # On poison, abort a torch.distributed world that still has an op in
+    # flight after 2x the heartbeat (what aborts a NCCL communicator).
+    "gang_poison_teardown_enabled": True,
+    # Deadline for one collective op (a torch_dist world's own timeout).
+    "collective_op_timeout_s": 300.0,
+    # Deadline for group formation (coordinator lookup, address exchange,
+    # world join).
+    "collective_rendezvous_timeout_s": 60.0,
 }
 
 

@@ -1,6 +1,6 @@
-"""The serving tier's exception types (copies of those in
-``ray_tpu/exceptions.py``, on a local base: the port imports nothing of
-``ray_tpu``)."""
+"""The port's exception types: the serving tier's and the gang's (copies of
+those in ``ray_tpu/exceptions.py``, on a local base: the port imports
+nothing of ``ray_tpu``)."""
 
 from __future__ import annotations
 
@@ -91,3 +91,32 @@ class KVAdoptTimeoutError(RayTpuError, TimeoutError):
     def __reduce__(self):
         return (type(self), (self.args[0] if self.args else "",),
                 {"timeout_s": self.timeout_s})
+
+
+class GangMemberDiedError(RayTpuError):
+    """A member of a gang-scheduled group (collective group / training
+    worker gang) died, poisoning the whole group.
+
+    The gang is the failure domain: one dead rank invalidates the whole
+    world, so survivors blocked in a collective must unwedge promptly (the
+    group coordinator's poison flag bounds the raise to the configured gang
+    heartbeat) and the trainer re-forms the gang from the latest
+    checkpoint. ``rank`` is the dead member's rank when known.
+    """
+
+    def __init__(self, message: str = "", *, group_name: str = "",
+                 rank: Optional[int] = None, reason: str = ""):
+        self.group_name = group_name
+        self.rank = rank
+        self.reason = reason
+        if not message:
+            who = f"rank {rank}" if rank is not None else "a member"
+            message = (f"gang member died: {who} of group "
+                       f"'{group_name or 'unknown'}'"
+                       + (f" ({reason})" if reason else ""))
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",),
+                {"group_name": self.group_name, "rank": self.rank,
+                 "reason": self.reason})

@@ -4,14 +4,12 @@ of jax and optax.
 Ported: the sample batch and GAE, connectors, the MLP policy, V-trace, the
 shared ``Learner`` and ``Algorithm``, ``LearnerGroup``, the PPO, A2C,
 IMPALA, BC, DQN, Ape-X and SAC learners and algorithms, multi-agent PPO,
-the rollout workers and the offline JSON IO; ``convert`` carries the
+DD-PPO (on ``parallel.collective``), the rollout workers and the offline
+JSON IO; ``convert`` carries the
 reference's state over. Algorithms drive their rollout actors through a
 runtime (``ray_tpu_torch.runtime.LocalRuntime`` unless one is given, such
 as the ``ray_tpu`` module); learners and workers take ``device`` (default
 ``cuda``); env stepping and replay stay numpy on the host.
-
-Not ported yet: DD-PPO, which joins and allreduces through the collectives
-that the port has not ported.
 """
 
 from ray_tpu_torch.rllib.a2c import A2C, A2CConfig, A2CLearner  # noqa: F401
@@ -25,6 +23,7 @@ from ray_tpu_torch.rllib.connectors import (  # noqa: F401
     ClipAction, ClipObs, Connector, ConnectorPipeline, FlattenObs,
     MeanStdFilter,
 )
+from ray_tpu_torch.rllib.ddppo import DDPPO, DDPPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.dqn import (  # noqa: F401
     DQN, DQNConfig, DQNLearner, ReplayBuffer,
 )
@@ -59,5 +58,6 @@ __all__ = [
     "ApexDQNLearner", "ContinuousPolicySpec", "ContinuousReplayBuffer",
     "GaussianPolicy", "SAC", "SACConfig", "SACLearner", "MultiAgentPPO",
     "MultiAgentPPOConfig", "ClipAction", "ClipObs", "Connector",
-    "ConnectorPipeline", "FlattenObs", "MeanStdFilter",
+    "ConnectorPipeline", "FlattenObs", "MeanStdFilter", "DDPPO",
+    "DDPPOConfig",
 ]

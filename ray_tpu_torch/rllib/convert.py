@@ -8,13 +8,14 @@ form the port's ``set_state`` / ``set_weights`` take. Param pytrees become
 and SAC's ``actor`` / ``q1`` / ``q2`` lists likewise. optax's Adam state
 (``ScaleByAdamState``: ``count``, ``mu``, ``nu``, inside the tuple of
 ``optax.adam``'s chain) becomes torch Adam's per-param ``step``,
-``exp_avg`` and ``exp_avg_sq``. Reads attributes only, so it needs neither
-jax nor optax.
+``exp_avg`` and ``exp_avg_sq``. ``flat_to_port`` reorders a
+``ravel_pytree`` vector into the port's ``parameters_to_vector`` order.
+Reads attributes only, so it needs neither jax nor optax.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,37 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     for k, v in items:
         out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+def jax_leaf_order(tree: Any, prefix: str = "") -> List[Tuple[str, tuple]]:
+    """(dotted path, shape) of each leaf in the order jax flattens
+    ``tree``: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [(prefix, np.shape(tree))]
+    out: List[Tuple[str, tuple]] = []
+    for k, v in items:
+        out += jax_leaf_order(v, f"{prefix}.{k}" if prefix else str(k))
+    return out
+
+
+def flat_to_port(flat: np.ndarray, tree: Any,
+                 names: Sequence[str]) -> np.ndarray:
+    """``flat``, a ``ravel_pytree`` vector of a pytree shaped as ``tree``,
+    in the order of ``names`` (the port's parameter names, the order its
+    ``parameters_to_vector`` takes)."""
+    parts, off = {}, 0
+    for name, shape in jax_leaf_order(tree):
+        n = int(np.prod(shape))
+        parts[name] = np.asarray(flat)[off:off + n]
+        off += n
+    if off != np.size(flat):
+        raise ValueError(f"flat vector has {np.size(flat)} values, the "
+                         f"tree {off}")
+    return np.concatenate([parts[n] for n in names])
 
 
 def params(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:

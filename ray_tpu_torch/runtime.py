@@ -49,8 +49,9 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 # options() takes these and ignores them: one process has no resources to
-# reserve.
-_RESOURCE_OPTIONS = frozenset({"num_cpus", "num_gpus", "num_tpus"})
+# reserve, and nothing for a detached actor to outlive.
+_RESOURCE_OPTIONS = frozenset({"num_cpus", "num_gpus", "num_tpus",
+                               "lifetime"})
 
 
 class ActorDiedError(RuntimeError):

@@ -24,11 +24,13 @@ stats (queue depth, slot occupancy, ``autoscale_load``). The engine's
 metrics stay in-process in ``ray_tpu_torch.util.metrics``: there is no
 reporter pushing them to a dashboard.
 
-The port's engine raises the port's ``EngineFailedError``. A runtime's
-serve handle migrates a request only on its own class, so where the
-runtime has ``exceptions.EngineFailedError`` (the ``ray_tpu`` module does)
-the replicas raise that class instead, with the same message, resume
-descriptor and reason.
+The port's engine raises the port's ``EngineFailedError`` and, when its
+queue is full, ``ServeOverloadedError``. A runtime's serve handle migrates
+a request only on its own ``EngineFailedError``, and its HTTP ingress sheds
+with 429 and Retry-After only on its own ``ServeOverloadedError``. So where
+the runtime has those classes in ``exceptions`` (the ``ray_tpu`` module
+does) the replicas raise them instead, with the same message and fields
+(resume descriptor and reason; ``retry_after_s`` and reason).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
-from ray_tpu_torch.exceptions import EngineFailedError
+from ray_tpu_torch.exceptions import EngineFailedError, ServeOverloadedError
 from ray_tpu_torch.models import generate as gen
 from ray_tpu_torch.runtime import LocalRuntime
 from ray_tpu_torch.serve.llm import engine as _engine
@@ -52,19 +54,30 @@ from ray_tpu_torch.serve.llm.kv_transfer import adopt_kv, publish_kv
 _PREFILL_FOLLOW_TIMEOUT_S = 120.0
 
 
+def _runtime_class(runtime: Any, cls: type) -> type:
+    """``runtime.exceptions``' class of ``cls``'s name, or ``cls``."""
+    return getattr(getattr(runtime, "exceptions", None), cls.__name__, cls)
+
+
 @contextlib.contextmanager
 def _seam(runtime: Any):
-    """Re-raise the port's ``EngineFailedError`` as ``runtime``'s own
-    class, where the runtime has one (module docstring)."""
+    """Re-raise the port's ``EngineFailedError`` and
+    ``ServeOverloadedError`` as ``runtime``'s own classes, where the
+    runtime has them (module docstring)."""
     try:
         yield
     except EngineFailedError as e:
-        cls = getattr(getattr(runtime, "exceptions", None),
-                      "EngineFailedError", None)
-        if cls is None or cls is EngineFailedError:
+        cls = _runtime_class(runtime, EngineFailedError)
+        if cls is EngineFailedError:
             raise
         raise cls(e.args[0] if e.args else "", descriptor=e.descriptor,
                   reason=e.reason) from e
+    except ServeOverloadedError as e:
+        cls = _runtime_class(runtime, ServeOverloadedError)
+        if cls is ServeOverloadedError or type(e) is not ServeOverloadedError:
+            raise
+        raise cls(e.args[0] if e.args else "",
+                  retry_after_s=e.retry_after_s, reason=e.reason) from e
 
 
 class _EngineStream:
@@ -201,8 +214,9 @@ class LLMReplica:
     # parked on this replica.
     def submit(self, request: Any) -> str:
         req = normalize_request(request)
-        return self._engine.submit(req["prompt"], req["n"], req["seed"],
-                                   generated=req["generated"])
+        with _seam(self._runtime):
+            return self._engine.submit(req["prompt"], req["n"], req["seed"],
+                                       generated=req["generated"])
 
     def drain(self, req_id: str, max_wait_s: float = 0.5):
         with _seam(self._runtime):
@@ -427,10 +441,11 @@ class DecodeReplica:
 
     def submit_prefilled(self, handoff: Dict[str, Any]) -> str:
         kv = adopt_kv(handoff, runtime=self._runtime)
-        return self._engine.submit_prefilled(
-            handoff["first_token"], kv, handoff["length"],
-            handoff.get("n"), handoff.get("seed") or 0,
-            prompt=handoff.get("prompt"))
+        with _seam(self._runtime):
+            return self._engine.submit_prefilled(
+                handoff["first_token"], kv, handoff["length"],
+                handoff.get("n"), handoff.get("seed") or 0,
+                prompt=handoff.get("prompt"))
 
     def decode(self, handoff: Dict[str, Any]) -> Dict[str, Any]:
         """Blocking: the remaining tokens (2..n) for one handoff."""
@@ -456,8 +471,9 @@ class DecodeReplica:
             raise ValueError(
                 "resume_stream needs 'generated' (the tokens already "
                 "delivered, first token included)")
-        rid = self._engine.submit(req["prompt"], req["n"], req["seed"],
-                                  generated=req["generated"])
+        with _seam(self._runtime):
+            rid = self._engine.submit(req["prompt"], req["n"], req["seed"],
+                                      generated=req["generated"])
         return _EngineStream(self._engine, rid, self._runtime)
 
     def drain(self, req_id: str, max_wait_s: float = 0.5):

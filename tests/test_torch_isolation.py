@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from ray_tpu_torch._private import device_objects
+from ray_tpu_torch.parallel import collective
+from ray_tpu_torch.rllib import DDPPOConfig
 from ray_tpu_torch.runtime import LocalRuntime
 from ray_tpu_torch.serve.llm import (
     DecodeReplica, LLMReplica, PrefillReplica, build_llm_app,
@@ -19,6 +21,8 @@ from ray_tpu_torch.serve.llm import (
 from ray_tpu_torch.serve.llm.engine import (
     EngineConfig, InflightBatchEngine, _build_model,
 )
+from ray_tpu_torch.train import Checkpoint, TorchDistTrainer
+from ray_tpu_torch.train.worker_group import WorkerGroup
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
@@ -47,7 +51,9 @@ def test_sources_found():
             "chip_smoke.py", "sac.py", "convert.py", "runtime.py",
             "learner_group.py", "device_objects.py", "config.py",
             "migration.py", "kv_transfer.py", "replicas.py",
-            "router.py"} <= names
+            "router.py", "collective.py", "data_parallel.py",
+            "worker_group.py", "session.py", "checkpoint.py",
+            "ddppo.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -60,10 +66,14 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_every_module_loads_none_of_them():
     """Imports done at run time too: a fresh interpreter imports every
-    module of the port and loads none of the forbidden packages beyond
-    what the interpreter had loaded at start."""
+    module of the port (the collectives, the trainer and DD-PPO among
+    them) and loads none of the forbidden packages beyond what the
+    interpreter had loaded at start."""
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in SOURCES if p.parent != ROOT]
+    assert {"ray_tpu_torch.parallel.collective", "ray_tpu_torch.train",
+            "ray_tpu_torch.train.torch", "ray_tpu_torch.rllib.ddppo"} \
+        <= {m.removesuffix(".__init__") for m in mods}
     code = ("import sys\nbefore = set(sys.modules)\n" +
             "".join(f"import {m}\n" for m in mods) +
             "print(sorted({m.split('.')[0] for m in sys.modules} - "
@@ -131,3 +141,33 @@ def test_rebuild_goes_back_to_cuda_when_the_process_has_it(monkeypatch):
     assert pick({"device": "cpu"}) == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pick({"device": "cuda:0"}) == torch.device("cpu")
+
+
+def test_trainer_and_ddppo_raise_without_cuda(monkeypatch, tmp_path):
+    """The gang trainer, its worker group, a torch_dist group, a
+    checkpoint's load and DD-PPO default to CUDA and raise without it;
+    ``device="cpu"`` builds them on the CPU."""
+    import gymnasium as gym
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchDistTrainer(lambda: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WorkerGroup(1, {"CPU": 1}, backend="store")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collective.TorchDistGroup(1, 0, "nocuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collective.LocalGroup(1, 0, "nocuda")
+    ckpt = Checkpoint.from_pytree({"w": torch.ones(2)},
+                                  path=str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.to_pytree()
+    assert torch.equal(ckpt.to_pytree(device="cpu")["w"], torch.ones(2))
+    cfg = DDPPOConfig(num_rollout_workers=1).environment(
+        lambda: gym.make("CartPole-v1"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cfg.build()
+    algo = cfg.build(device="cpu")
+    assert algo.train()["timesteps_this_iter"] == 200
+    algo.stop()
+    TorchDistTrainer(lambda: None, device="cpu")

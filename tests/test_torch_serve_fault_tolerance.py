@@ -262,3 +262,24 @@ def test_step_error_stream_migrates_in_process(sampling):
     finally:
         rt.serve.delete("tlocal")
         rt.serve.delete("tlocal-engine")
+
+
+def test_queue_full_sheds_as_the_runtime_overload_error(serve_cluster):
+    """An engine whose queue is full (``max_queue=0``: every submit is
+    shed) raises ``ray_tpu``'s own ``ServeOverloadedError`` at the handle,
+    retry-after and reason kept: the class ``ray_tpu``'s HTTP ingress maps
+    to 429 with Retry-After (``ingress/server.py`` ``_classify_error``)."""
+    handle = _run("tshed", "combined", engine=dict(max_queue=0))
+    try:
+        for call in (
+                lambda: handle.remote(
+                    {"prompt": PROMPT, "n": N, "seed": 0}).result(),
+                lambda: list(handle.generate_stream.remote_gen(
+                    {"prompt": PROMPT, "n": N, "seed": 0}))):
+            with pytest.raises(ray_tpu.exceptions.ServeOverloadedError) \
+                    as ei:
+                call()
+            assert ei.value.retry_after_s == 1.0
+            assert ei.value.reason == "engine_queue_full"
+    finally:
+        _delete("tshed", "tshed-engine")
