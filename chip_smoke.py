@@ -7,6 +7,7 @@
                                      # model and one decode step into
                                      # chiprun_out/
     python3 chip_smoke.py --seed N   # the serve run's weights and prompts
+    python3 chip_smoke.py --only sharded  # phases 1-5 and 15 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -135,6 +136,25 @@ Phases, each printed on its own line, each fatal when it fails:
    time. (c) DD-PPO (``collective_backend="torch_dist"``, one member) on
    the numpy CartPole, 2 iterations on the card against the CPU from one
    seed (phase 12's tolerances and near-tie rule).
+
+15. sharded: the slice of meshes (``ray_tpu_torch/parallel``: meshes,
+   sharding rules, ring attention, the pipeline; ``models`` with ``mesh=``)
+   on 4 ranks in 4 child processes sharing the card over gloo (the card
+   holds one NCCL rank; ``backend="gloo"`` is explicit). Phase 4's seed,
+   batch, bf16 compute, f32 params, remat "full" and AdamW(3e-4, wd 0.1),
+   each rank drawing phase 4's init and keeping its shards; 4 steps a
+   mesh, the last 3 timed. (a) gpt2-125m on {fsdp 2, tp 2} with the flash
+   kernels: the first loss within 1e-3 of phase 4's and the grad norm
+   within 1e-3 relative, 24/12/12 launches a step on every rank, K1-K3
+   against their plain versions at the local shape [4, 1024, 6, 64]; (b)
+   {sp 2, tp 2} with ring attention: the same gates and no flash launch;
+   (c) gpt2-125m-moe8 (phase 6) on {pp 2, ep 2}: the first loss and grad
+   norm against the model run microbatch by microbatch (M = 2) in this
+   process, at the same gates, and 36/18/18 launches a step (each stage's
+   6 layers on 3 ticks); (d) ``graft_entry.dryrun_multichip(4)`` on the
+   card (gloo) against the CPU to 1e-4. Prints each mesh's step ms (the
+   median of the slowest rank's timed steps), the bytes and ms gloo moved
+   a rank a step, and peak memory per rank.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -2727,6 +2747,235 @@ def gang_phase(tm, fa, run, seed):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded step on a mesh of 4 ranks sharing the card.
+
+SHARDED_WORLD = 4
+SHARDED_WARMUP, SHARDED_STEPS = 1, 4     # the steps after the first timed
+# name, mesh axes, config overrides of gpt2-125m (max_seq L, bf16, remat
+# "full"): (a) FSDP x TP with the flash kernels on each rank's local
+# [B/2, L, H/2, D]; (b) sequence x TP with ring attention; (c) phase 6's
+# MoE as a GPipe pipeline of 2 stages with its experts over ep.
+SHARDED_MESHES = (
+    ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, dict(flash_attention=True)),
+    ("sp2_tp2", {"sp": 2, "tp": 2}, dict(ring_attention=True)),
+    ("pp2_ep2", {"pp": 2, "ep": 2}, MOE),
+)
+# The first loss against the one-process reference on the same params and
+# batch, and the first step's grad norm relative to the reference's: bf16
+# products and all-reduces land in other orders (1.5e-4 and 1.4e-4 at
+# most on the card, (a) and (b); 4.8e-7 on the loss for (c)).
+SHARDED_LOSS_ATOL, SHARDED_GNORM_RTOL = 1e-3, 1e-3
+PIPE_MICROBATCHES = 2                    # the pipeline's default M = pp
+DRYRUN_ATOL = 1e-4
+
+
+def sharded_launches(name, n_layers):
+    """The flash launches a rank makes a step on mesh ``name``: remat
+    "full" runs each layer's forward twice; under the pipeline each stage
+    runs its n_layers / 2 layers on each of M + 1 ticks."""
+    if name == "sp2_tp2":
+        return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    runs = (n_layers if name == "fsdp2_tp2" else
+            n_layers // 2 * (PIPE_MICROBATCHES + 1))
+    return {"flash_fwd": 2 * runs, "flash_bwd_dq": runs,
+            "flash_bwd_dkv": runs}
+
+
+def sharded_rank(rank, addr, out):
+    """One rank of phase 15 (run in its own process): joins the gloo
+    world, then for each mesh of SHARDED_MESHES builds the state from seed
+    0 on every rank (phase 4's init), takes SHARDED_STEPS steps of phase
+    4's batch and writes its losses, grad norms, step times, the transport
+    of each step, flash launches and peak memory to ``out``."""
+    import gc
+
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import collective as col
+    from ray_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = col.join_world(addr, SHARDED_WORLD, rank, device="cuda",
+                         backend="gloo", timeout_s=300.0)
+    results = {}
+    for name, axes, kw in SHARDED_MESHES:
+        mesh = make_mesh(axes=axes, device=dev)
+        cfg = tm.GPTConfig.preset("gpt2-125m", **{**kw, "max_seq": L})
+        opt = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.1)
+        state = tm.make_train_state(
+            cfg, opt, generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev, mesh=mesh)
+        step = tm.make_train_step(cfg, mesh=mesh)
+        batch = train_batch(cfg.vocab_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        r = {"losses": [], "grad_norms": [], "step_s": [], "transport": []}
+        for _ in range(SHARDED_STEPS):
+            col.reset_transport_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            r["losses"].append(m["loss"].item())
+            r["grad_norms"].append(m["grad_norm"].item())
+            torch.cuda.synchronize()
+            r["step_s"].append(time.perf_counter() - t0)
+            r["transport"].append(col.transport_stats())
+        r["launches"] = {k.symbol.removeprefix("rtt_"): k.launches
+                         for k in fa.KERNELS}
+        r["peak"] = torch.cuda.max_memory_allocated()
+        results[name] = r
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    col.leave_world()
+
+
+def spawn_sharded(out):
+    from ray_tpu_torch.parallel.collective import _free_port
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    addr = f"127.0.0.1:{_free_port()}"
+    src = (f"import sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
+           f"chip_smoke.sharded_rank(int(sys.argv[1]), {addr!r}, {out!r})")
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(SHARDED_WORLD)]
+    procs = [subprocess.Popen([sys.executable, "-c", src, str(r)], cwd=repo,
+                              stdout=f, stderr=subprocess.STDOUT)
+             for r, f in enumerate(logs)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if rcs != [0] * SHARDED_WORLD:
+        tails = [open(os.path.join(out, f"rank{r}.log")).read()[-3000:]
+                 for r in range(SHARDED_WORLD)]
+        raise AssertionError(f"sharded: ranks exited {rcs}: {tails}")
+    return [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(SHARDED_WORLD)]
+
+
+def moe_microbatch_reference(tm):
+    """The one-process reference of mesh (c): phase 6's model from seed 0
+    run microbatch by microbatch (M = 2, each microbatch its own
+    capacity). Returns the mean of the microbatch losses and the norm of
+    its gradient."""
+    from ray_tpu_torch.models.transformer import global_norm, tree_leaves
+
+    cfg = tm.GPTConfig.preset("gpt2-125m", **MOE)
+    params = tm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = train_batch(cfg.vocab_size)
+    n = B // PIPE_MICROBATCHES
+    loss = sum(tm.loss_fn(params, {k: v[i * n:(i + 1) * n]
+                                   for k, v in batch.items()}, cfg)
+               for i in range(PIPE_MICROBATCHES)) / PIPE_MICROBATCHES
+    loss.backward()
+    gnorm = global_norm(p.grad for p in leaves).item()
+    return loss.item(), gnorm
+
+
+def sharded_phase(tm, fa, run):
+    """Phase 15: K1-K3 against their plain versions at mesh (a)'s local
+    shape; the three meshes of SHARDED_MESHES on 4 ranks over gloo (the
+    card holds one NCCL rank), their first losses and grad norms against
+    phase 4's ``run`` (mesh (c)'s against the model run microbatch by
+    microbatch); then ``dryrun_multichip(4)`` on the card against the
+    CPU."""
+    from ray_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    errors = check_kernels(fa, B // 2 * H // 2, L, L, D, torch.bfloat16,
+                           True, tol_out=(1e-3, 1e-2),
+                           tol_row=(1e-4, 1e-5), tol_grad=(2e-2, 1e-2))
+    moe_loss, moe_gnorm = moe_microbatch_reference(tm)
+    gc_collect()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as out:
+        ranks = spawn_sharded(out)
+    results = {"kernel_errors": errors,
+               "moe_microbatch": {"loss": moe_loss, "grad_norm": moe_gnorm}}
+    n_layers = tm.GPTConfig.preset("gpt2-125m").n_layers
+    for name, axes, kw in SHARDED_MESHES:
+        per = [r[name] for r in ranks]
+        losses, gnorm = per[0]["losses"], per[0]["grad_norms"][0]
+        if any(p["losses"] != losses for p in per):
+            raise AssertionError(f"sharded {name}: ranks' losses differ "
+                                 f"{[p['losses'] for p in per]}")
+        want, want_gnorm = ((moe_loss, moe_gnorm) if name == "pp2_ep2"
+                            else (run.losses[0], run.grad_norm))
+        loss_err = abs(losses[0] - want)
+        gnorm_err = abs(gnorm - want_gnorm) / want_gnorm
+        if not loss_err <= SHARDED_LOSS_ATOL:
+            raise AssertionError(f"sharded {name}: first loss {losses[0]} "
+                                 f"vs one process {want}")
+        if not gnorm_err <= SHARDED_GNORM_RTOL:
+            raise AssertionError(f"sharded {name}: grad norm {gnorm} vs one"
+                                 f" process {want_gnorm}")
+        launches = [p["launches"] for p in per]
+        a_step = sharded_launches(name, n_layers)
+        for r, got in enumerate(launches):
+            if any(got[k] != v * SHARDED_STEPS for k, v in a_step.items()):
+                raise AssertionError(
+                    f"sharded {name} rank {r}: launches {got} in "
+                    f"{SHARDED_STEPS} steps, want {a_step} a step")
+        # A rank's timed steps; the step's time is the slowest rank's.
+        timed = [[t * 1e3 for t in p["step_s"][SHARDED_WARMUP:]]
+                 for p in per]
+        step_ms = statistics.median(max(ts) for ts in zip(*timed))
+        moved = [p["transport"][-1] for p in per]
+        results[name] = {
+            "axes": axes, "losses": losses, "grad_norm": gnorm,
+            "reference_loss": want, "reference_grad_norm": want_gnorm,
+            "loss_err": loss_err, "grad_norm_rel_err": gnorm_err,
+            "step_ms": step_ms, "step_ms_ranks": timed,
+            "launches": launches,
+            "transport_bytes": [t["bytes"] for t in moved],
+            "transport_ms": [t["seconds"] * 1e3 for t in moved],
+            "transport_calls": [t["calls"] for t in moved],
+            "peak_gb": [p["peak"] / 1e9 for p in per]}
+        log(f"sharded {name} ok: {axes}, losses {losses} (one process "
+            f"{want:.6f}, |diff| {loss_err:.3e}, atol {SHARDED_LOSS_ATOL}),"
+            f" grad norm {gnorm:.6f} (one process {want_gnorm:.6f}, rel "
+            f"{gnorm_err:.3e}, rtol {SHARDED_GNORM_RTOL}); step "
+            f"{step_ms:.1f} ms (median of {len(timed[0])}, the slowest "
+            f"rank's; ranks {[[round(t, 1) for t in ts] for ts in timed]});"
+            f" gloo a rank a step: "
+            f"{[round(t['bytes'] / 1e6, 1) for t in moved]} MB in "
+            f"{[round(t['seconds'] * 1e3, 1) for t in moved]} ms "
+            f"({moved[0]['calls']} calls); flash launches rank 0 "
+            f"{launches[0]} in {SHARDED_STEPS} steps; peak "
+            f"{[round(p['peak'] / 1e9, 2) for p in per]} GB")
+    dry = graft_entry.dryrun_multichip(SHARDED_WORLD, device="cuda",
+                                       backend="gloo")
+    dry_cpu = graft_entry.dryrun_multichip(SHARDED_WORLD, device="cpu")
+    for k in dry_cpu:
+        if not (math.isfinite(dry[k])
+                and abs(dry[k] - dry_cpu[k]) <= DRYRUN_ATOL):
+            raise AssertionError(f"dryrun {k}: cuda {dry[k]} vs cpu "
+                                 f"{dry_cpu[k]}")
+    results["dryrun"] = {"card": dry, "cpu": dry_cpu}
+    results["phase_s"] = time.perf_counter() - t0
+    log(f"sharded dryrun ok: dryrun_multichip({SHARDED_WORLD}) on cuda "
+        f"{dry} vs cpu {dry_cpu} (atol {DRYRUN_ATOL})")
+    log(f"sharded phase ok in {results['phase_s']:.1f} s; card: "
+        f"{gpu_line()}")
+    log("sharded metrics: " + json.dumps(results))
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2736,6 +2985,9 @@ def main() -> int:
                          "decode step into chiprun_out/")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
+    ap.add_argument("--only", choices=["sharded"],
+                    help="run the build, the kernel checks, the main path "
+                         "and this phase only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2830,6 +3082,14 @@ def main() -> int:
         f"{step_ms:.2f} ms")
     torch.cuda.empty_cache()
 
+    if args.only == "sharded":
+        sharded_phase(tm, fa, run)
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
@@ -2850,8 +3110,13 @@ def main() -> int:
     rl_algo_phase(args.seed)
     serve_app_phase(tm, gen, fa, args.seed)
     gang = gang_phase(tm, fa, run, args.seed)
+    gc_collect()
+    sharded = sharded_phase(tm, fa, run)
     for row in rows:
         row["trainer_launches"] = gang["trainer"]["launches"][row["name"]]
+        row["sharded_launches"] = {
+            name: [r[row["name"]] for r in sharded[name]["launches"]]
+            for name, _, _ in SHARDED_MESHES}
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Models of the port: the GPT-2-family decoder (``transformer``), its
 KV-cache generation (``generate``) and the small dense nets (``mlp``).
 
-The same public names as ``ray_tpu.models`` minus ``param_logical_axes``
-(mesh sharding is not ported yet), plus the numpy converters, the KV-cache
+The same public names as ``ray_tpu.models``, plus ``shard_params`` (params
+laid out on a mesh by ``param_logical_axes``), the numpy converters, the KV-cache
 functions of ``generate`` and ``serving_params`` (the block weights cast to
 the compute dtype once). ``generate`` itself is the submodule's name, so
 the function stays ``models.generate.generate``.
@@ -11,6 +11,9 @@ the function stays ``models.generate.generate``.
 from ray_tpu_torch.models.transformer import (  # noqa: F401
     GPTConfig,
     init_params,
+    param_logical_axes,
+    shard_params,
+    new_train_state,
     forward,
     loss_fn,
     TrainState,
@@ -41,7 +44,9 @@ from ray_tpu_torch.models.generate import (  # noqa: F401
 )
 
 __all__ = [
-    "GPTConfig", "init_params", "forward", "loss_fn", "TrainState",
+    "GPTConfig", "init_params", "param_logical_axes", "shard_params",
+    "new_train_state",
+    "forward", "loss_fn", "TrainState",
     "make_train_state", "make_train_step", "count_params",
     "MLPConfig", "mlp_init", "mlp_forward", "mlp_params_from_numpy",
     "params_from_numpy", "init_cache", "prefill",

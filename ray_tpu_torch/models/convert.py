@@ -15,14 +15,20 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
-from ray_tpu_torch.models.transformer import GPTConfig, Params, init_params
+from ray_tpu_torch.models.transformer import (
+    GPTConfig, Params, init_params, shard_params,
+)
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: GPTConfig,
-                      device: DeviceLike = None) -> Params:
+                      device: DeviceLike = None, mesh=None,
+                      rules=None) -> Params:
     """Port params for ``cfg`` from a nested dict of numpy arrays, in
     ``cfg.param_dtype`` on ``device`` (default ``cuda``), ready to train.
-    Raises if a name or shape differs from what ``init_params`` makes."""
+    Raises if a name or shape differs from what ``init_params`` makes.
+    Under ``mesh`` (every rank passing the same ``tree``) they come back as
+    DTensors laid out by ``param_logical_axes`` and ``rules``
+    (``shard_params``)."""
     device = resolve_device(device)
     expected = init_params(cfg, generator=torch.Generator(), device="meta")
 
@@ -41,4 +47,5 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: GPTConfig,
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         return t.to(device, cfg.param_dtype).requires_grad_(True)
 
-    return convert(tree, expected, "")
+    params = convert(tree, expected, "")
+    return params if mesh is None else shard_params(params, cfg, mesh, rules)

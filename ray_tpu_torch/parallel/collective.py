@@ -36,6 +36,7 @@ from __future__ import annotations
 import collections
 import datetime
 import logging
+import math
 import socket
 import threading
 import time
@@ -637,20 +638,27 @@ def _free_port() -> int:
 
 
 def join_world(coordinator_address: str, world_size: int, rank: int, *,
-               device: DeviceLike = None,
+               device: DeviceLike = None, backend: Optional[str] = None,
                timeout_s: Optional[float] = None) -> torch.device:
     """Join (or confirm membership in) this process's ``torch.distributed``
     world at ``tcp://coordinator_address``, NCCL when ``device`` (``cuda``
     by default) is CUDA, gloo when it is the CPU; nothing falls back to the
-    other backend. Idempotent per process: a world of the same size, rank
-    and backend is reused; one of another raises. ``timeout_s`` (default
-    ``collective_op_timeout_s``) bounds the rendezvous and every op.
-    Returns the device the world's tensors live on."""
+    other backend. ``backend="gloo"`` on CUDA is the caller's explicit
+    choice for ranks that share one GPU, which NCCL refuses. Idempotent per
+    process: a world of the same size, rank and backend is reused; one of
+    another raises. ``timeout_s`` (default ``collective_op_timeout_s``)
+    bounds the rendezvous and every op. Returns the device the world's
+    tensors live on."""
     import torch.distributed as dist
 
     global _world_users
     dev = _group_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    elif backend not in ("nccl", "gloo") or (
+            backend == "nccl" and dev.type != "cuda"):
+        raise ValueError(f"backend {backend!r} on {dev}: NCCL needs CUDA; "
+                         f"gloo runs on either")
     if timeout_s is None:
         timeout_s = float(config.collective_op_timeout_s)
     with _world_lock:
@@ -987,3 +995,355 @@ def send(tensor, dst_rank: int, group_name: str = DEFAULT_GROUP_NAME):
 
 def recv(shape, dtype, src_rank: int, group_name: str = DEFAULT_GROUP_NAME):
     return get_group(group_name).recv(shape, dtype, src_rank)
+
+
+# ------------------------------------------------------------- SPMD bodies
+#
+# The collectives of a program that runs once on every rank of a mesh (a
+# ``shard_map_compat`` body; the model under a mesh), over named dims of a
+# torch ``DeviceMesh``. Each is differentiable with the transpose jax gives
+# it in an unchecked ``shard_map`` (``check_vma=False``, as every shard_map
+# of the reference runs): psum <-> psum, all_gather <-> psum_scatter,
+# ppermute <-> the inverse permutation. Under that rule the cotangent a rank
+# holds for a value replicated over a mesh dim is its share of the
+# gradient, which is the sum of the shares over the dim; ``shard_map_compat``
+# keeps the rule at the body's edges.
+
+# Every op here calls ``torch.distributed`` itself, DTensor layouts
+# included (``redistribute_local``): DTensor's own redistributions run
+# through functional collectives, which crash the process on gloo with CUDA
+# tensors (torch 2.11), where the plain ops work.
+#
+# What this process handed to the world's transport: calls, bytes of the
+# tensors sent in, and host seconds around the blocking calls.
+_TRANSPORT = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def transport_stats() -> Dict[str, float]:
+    return dict(_TRANSPORT)
+
+
+def reset_transport_stats() -> None:
+    _TRANSPORT.update(calls=0, bytes=0, seconds=0.0)
+
+
+class _Timed:
+    def __init__(self, nbytes: int):
+        self.nbytes = nbytes
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        _TRANSPORT["calls"] += 1
+        _TRANSPORT["bytes"] += self.nbytes
+        _TRANSPORT["seconds"] += time.perf_counter() - self.t0
+
+
+def _mesh_groups(mesh_dims) -> list:
+    """The process groups of a (sliced) ``DeviceMesh``'s dims, outermost
+    first, those of one rank left out."""
+    return [mesh_dims.get_group(i) for i in range(mesh_dims.ndim)
+            if mesh_dims.size(i) > 1]
+
+
+@torch.no_grad()
+def _all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    import torch.distributed as dist
+
+    y = x.contiguous().clone()
+    for g in groups:
+        with _Timed(y.numel() * y.element_size()):
+            dist.all_reduce(y, group=g)
+    return y
+
+
+@torch.no_grad()
+def _gather_dim(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """Concatenate the ranks' ``x`` along ``dim``, outer dims major."""
+    import torch.distributed as dist
+
+    for g in reversed(groups):
+        n = dist.get_world_size(g)
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((n * xt.shape[0],) + xt.shape[1:])
+        with _Timed(xt.numel() * xt.element_size()):
+            dist.all_gather_into_tensor(out, xt, group=g)
+        x = out.movedim(0, dim)
+    return x
+
+
+@torch.no_grad()
+def _scatter_sum_dim(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """Sum ``x`` over the ranks and keep this rank's chunk of ``dim``."""
+    import torch.distributed as dist
+
+    for g in groups:
+        n = dist.get_world_size(g)
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
+        with _Timed(xt.numel() * xt.element_size()):
+            dist.reduce_scatter_tensor(out, xt, group=g)
+        x = out.movedim(0, dim)
+    return x
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        return _gather_dim(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum_dim(g, ctx.dim, ctx.groups), None, None
+
+
+def psum(x: torch.Tensor, mesh_dims) -> torch.Tensor:
+    """``lax.psum`` over every dim of ``mesh_dims`` (a ``DeviceMesh`` or a
+    slice of one, e.g. ``mesh["dp", "fsdp"]``)."""
+    groups = _mesh_groups(mesh_dims)
+    return _PSum.apply(x, groups) if groups else x
+
+
+def all_gather(x: torch.Tensor, mesh_dims, dim: int) -> torch.Tensor:
+    """``lax.all_gather(..., axis=dim, tiled=True)``: the ranks' ``x``
+    concatenated along ``dim``, the mesh's outer dims major."""
+    groups = _mesh_groups(mesh_dims)
+    return _AllGather.apply(x, dim, groups) if groups else x
+
+
+@torch.no_grad()
+def _permute(x: torch.Tensor, perm, group) -> torch.Tensor:
+    """Send ``x`` along ``perm``'s (source, destination) pairs of group
+    ranks; a rank no pair sends to gets zeros. One ``all_to_all_single``
+    with one non-empty split a side: gloo takes CUDA tensors there, where
+    its send/recv read them as host memory (``tools/probe_gloo_cuda.py``)."""
+    import torch.distributed as dist
+
+    me, n = dist.get_rank(group), dist.get_world_size(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    flat = x.contiguous().view(-1)
+    out = torch.zeros_like(flat)
+    ins = [flat.numel() if r in dst else 0 for r in range(n)]
+    outs = [flat.numel() if r in src else 0 for r in range(n)]
+    with _Timed(sum(ins) * flat.element_size()):
+        dist.all_to_all_single(out[:sum(outs)], flat[:sum(ins)],
+                               output_split_sizes=outs,
+                               input_split_sizes=ins, group=group)
+    return out.view_as(x)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _permute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _permute(g, inverse, ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, perm, mesh_dim) -> torch.Tensor:
+    """``lax.ppermute`` over a 1-D mesh slice (``mesh["sp"]``): rank
+    ``s`` sends ``x`` to ``d`` for each ``(s, d)`` in ``perm`` (a
+    permutation), ranks nothing reaches get zeros. Its gradient runs the
+    inverse permutation."""
+    if len(set(s for s, _ in perm)) != len(perm) or len(
+            set(d for _, d in perm)) != len(perm):
+        raise ValueError(f"ppermute needs a permutation, got {perm}")
+    if mesh_dim.ndim != 1:
+        raise ValueError("ppermute runs over one mesh dim")
+    return _PPermute.apply(x, tuple(perm), mesh_dim.get_group())
+
+
+def _spec_in(spec, key):
+    return spec[key] if isinstance(spec, dict) else spec
+
+
+def _narrow(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"evenly {n} ways")
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size)
+
+
+@torch.no_grad()
+def redistribute_local(x: torch.Tensor, mesh, src, dst) -> torch.Tensor:
+    """This rank's local tensor of a DTensor laid out by placements ``src``
+    on ``mesh``, laid out by ``dst`` instead (collective over the mesh
+    dims that change): a shard gathered, a Partial summed (scattered where
+    it becomes a shard), a replica split or kept on coordinate 0 for a
+    Partial. Not differentiable; the callers are."""
+    from torch.distributed.tensor import Replicate
+
+    src, dst = list(src), list(dst)
+    n = len(src)
+
+    def alone(m):
+        """No other mesh dim shards ``dst[m]``'s tensor dim."""
+        return not any(i != m and p.is_shard(dst[m].dim)
+                       for i in range(n) for p in (src[i], dst[i]))
+
+    # First what shrinks the tensor or keeps its size: splits and
+    # reductions of a tensor dim no other mesh dim shards, and sums. They
+    # commute with the gathers below, which then move less.
+    for m in range(n):
+        if src[m] == dst[m]:
+            continue
+        group = mesh.get_group(m)
+        if dst[m].is_shard() and alone(m) and src[m].is_replicate():
+            x = _narrow(x, dst[m].dim, mesh.size(m), mesh.get_local_rank(m))
+        elif dst[m].is_shard() and alone(m) and src[m].is_partial():
+            x = _scatter_sum_dim(x, dst[m].dim, [group])
+        elif dst[m].is_replicate() and src[m].is_partial():
+            x = _all_reduce(x, [group])
+        else:
+            continue
+        src[m] = dst[m]
+    # Gather what changes; a dim sharded over several mesh dims is sharded
+    # outer mesh dim first, so the inner ones are undone too.
+    undo = {m for m in range(n) if src[m].is_shard() and src[m] != dst[m]}
+    for m in range(n):
+        if dst[m].is_shard() and src[m] != dst[m]:
+            undo |= {i for i in range(m + 1, n) if src[i] == dst[m]}
+    for m in list(undo):
+        undo |= {i for i in range(m + 1, n) if src[i] == src[m]}
+    for m in sorted(undo, reverse=True):
+        if src[m].is_shard():
+            x = _gather_dim(x, src[m].dim, [mesh.get_group(m)])
+            src[m] = Replicate()
+    for m in range(n):
+        group = mesh.get_group(m)
+        if src[m] == dst[m]:
+            continue
+        if src[m].is_partial() and dst[m].is_shard():
+            x = _scatter_sum_dim(x, dst[m].dim, [group])
+        elif src[m].is_partial():
+            x = _all_reduce(x, [group])
+            if dst[m].is_partial():
+                raise ValueError(f"Partial kinds {src[m]} -> {dst[m]}")
+        elif dst[m].is_shard():
+            x = _narrow(x, dst[m].dim, mesh.size(m), mesh.get_local_rank(m))
+        elif dst[m].is_partial():
+            if mesh.get_local_rank(m) != 0:
+                x = torch.zeros_like(x)
+        src[m] = dst[m]
+    return x
+
+
+class _Enter(torch.autograd.Function):
+    """A DTensor's local shard in ``placements``; its gradient arrives as
+    a local tensor laid out by ``grad_placements`` and leaves laid out as
+    the DTensor (a Partial share reduced, a shard gathered)."""
+
+    @staticmethod
+    def forward(ctx, x, placements, grad_placements):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        ctx.grad_placements = grad_placements
+        out = redistribute_local(x.to_local(), ctx.mesh, ctx.placements,
+                                 placements)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        local = redistribute_local(g.contiguous(), ctx.mesh,
+                                   ctx.grad_placements, ctx.placements)
+        return (DTensor.from_local(local.contiguous(), ctx.mesh,
+                                   ctx.placements, run_check=False),
+                None, None)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _enter(x, spec, mesh):
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from ray_tpu_torch.parallel.sharding import distribute, spec_placements
+    from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec
+
+    if isinstance(x, dict):
+        return {k: _enter(v, _spec_in(spec, k), mesh) for k, v in x.items()}
+    if not isinstance(x, torch.Tensor):
+        return x
+    spec = spec if spec is not None else PartitionSpec()
+    placements = spec_placements(mesh, spec)
+    if not isinstance(x, DTensor):
+        if x.requires_grad:
+            raise TypeError("a shard_map input that needs a gradient must "
+                            "be a DTensor (sharding.shard_pytree)")
+        x = distribute(x, NamedSharding(mesh, spec))
+    if not (x.is_floating_point() and x.requires_grad):
+        return redistribute_local(x.to_local(), mesh, x.placements,
+                                  placements)
+    grad = tuple(p if isinstance(p, Shard) else Partial() for p in placements)
+    return _Enter.apply(x, tuple(placements), grad)
+
+
+def _exit(y, spec, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ray_tpu_torch.parallel.sharding import PartitionSpec, spec_placements
+
+    if isinstance(y, dict):
+        return {k: _exit(v, _spec_in(spec, k), mesh) for k, v in y.items()}
+    if isinstance(y, (tuple, list)):
+        specs = [spec] * len(y) if isinstance(spec, PartitionSpec) else spec
+        return type(y)(_exit(v, s, mesh) for v, s in zip(y, specs))
+    placements = spec_placements(
+        mesh, spec if spec is not None else PartitionSpec())
+    replicas = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                         if p == Replicate())
+    if y.requires_grad and replicas > 1:
+        y = _ScaleGrad.apply(y, 1.0 / replicas)
+    return DTensor.from_local(y, mesh, placements, run_check=False)
+
+
+def shard_map_compat(f, *, mesh, in_specs, out_specs):
+    """The reference's ``shard_map_compat`` (an unchecked ``shard_map``)
+    on a ``DeviceMesh``: ``local_map``'s contract with jax's transposes.
+    ``f`` runs once on every rank on its local shards; ``in_specs`` has one
+    ``PartitionSpec`` (or a dict of them, or one for a whole dict) per
+    argument, ``out_specs`` one per output. DTensor arguments are
+    redistributed to their spec and entered as local tensors; a plain
+    tensor (the same value on every rank, no gradient) is split by its
+    spec. Outputs come back as DTensors. Gradients follow the
+    unchecked shard_map: an output replicated over mesh dims hands each
+    rank 1/n of its cotangent, and an input replicated over mesh dims sums
+    its ranks' cotangents (a DTensor Partial, reduced into the argument's
+    own layout)."""
+
+    def call(*args):
+        if len(args) != len(in_specs):
+            raise ValueError(f"{len(args)} arguments for {len(in_specs)} "
+                             f"in_specs")
+        local = [_enter(a, s, mesh) for a, s in zip(args, in_specs)]
+        return _exit(f(*local), out_specs, mesh)
+
+    return call

@@ -53,7 +53,8 @@ def test_sources_found():
             "migration.py", "kv_transfer.py", "replicas.py",
             "router.py", "collective.py", "data_parallel.py",
             "worker_group.py", "session.py", "checkpoint.py",
-            "ddppo.py"} <= names
+            "ddppo.py", "mesh.py", "sharding.py", "pipeline.py",
+            "attention.py", "graft_entry.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -72,7 +73,10 @@ def test_importing_every_module_loads_none_of_them():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in SOURCES if p.parent != ROOT]
     assert {"ray_tpu_torch.parallel.collective", "ray_tpu_torch.train",
-            "ray_tpu_torch.train.torch", "ray_tpu_torch.rllib.ddppo"} \
+            "ray_tpu_torch.train.torch", "ray_tpu_torch.rllib.ddppo",
+            "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
+            "ray_tpu_torch.parallel.pipeline",
+            "ray_tpu_torch.graft_entry"} \
         <= {m.removesuffix(".__init__") for m in mods}
     code = ("import sys\nbefore = set(sys.modules)\n" +
             "".join(f"import {m}\n" for m in mods) +

@@ -196,15 +196,25 @@ def test_training_reduces_loss():
     {"ring_attention": True}, {"pp_microbatches": 2},
 ])
 def test_unported_options_raise(kw):
-    _, tcfg = _cfgs(**kw)
-    with pytest.raises(NotImplementedError):
-        tm.init_params(tcfg, generator=torch.Generator(), device="cpu")
+    """The mesh options are ported (tests/test_torch_sharded.py,
+    tests/test_torch_expert_pipeline.py); without a mesh they change
+    nothing, as in the reference, and an unknown remat policy still
+    raises."""
+    jcfg, tcfg = _cfgs()
+    _, tp = _params(jcfg, tcfg)
+    toks = torch.from_numpy(_tokens(3, b=2, l=16)[:, :-1])
+    _, kcfg = _cfgs(**kw)
+    torch.testing.assert_close(tm.forward(tp, toks, kcfg),
+                               tm.forward(tp, toks, tcfg), rtol=0, atol=0)
+    _, bad = _cfgs(remat=True, remat_policy="everything", **kw)
+    with pytest.raises(ValueError):
+        tm.init_params(bad, generator=torch.Generator(), device="cpu")
 
 
 def test_mesh_argument_raises():
     jcfg, tcfg = _cfgs()
     _, tp = _params(jcfg, tcfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tm.forward(tp, torch.zeros(1, 4, dtype=torch.long), tcfg,
                    mesh=object())
 

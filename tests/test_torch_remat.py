@@ -134,7 +134,7 @@ def _port_kept(model, policy, flash):
     packed = []
     with torch.autograd.graph.saved_tensors_hooks(
             lambda t: packed.append(t) or t, lambda t: t):
-        out = tt._Remat.apply(tcfg, torch.arange(64), tuple(bp), x,
+        out = tt._Remat.apply(tcfg, torch.arange(64), tuple(bp), None, x,
                               *bp.values())
     args = [x, *bp.values()]
 
