@@ -8,6 +8,7 @@
                                      # chiprun_out/
     python3 chip_smoke.py --seed N   # the serve run's weights and prompts
     python3 chip_smoke.py --only sharded  # phases 1-5 and 15 only
+    python3 chip_smoke.py --only runtime  # phases 1-5 and 16 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -155,6 +156,28 @@ Phases, each printed on its own line, each fatal when it fails:
    card (gloo) against the CPU to 1e-4. Prints each mesh's step ms (the
    median of the slowest rank's timed steps), the bytes and ms gloo moved
    a rank a step, and peak memory per rank.
+
+16. runtime: the port's own runtime (``ray_tpu_torch.init``, its node
+   manager handing each GPU worker its ``CUDA_VISIBLE_DEVICES``) on the card,
+   4 CPUs and the card's GPU. (a) ``cluster_resources()["GPU"]`` is 1; a
+   ``num_gpus=1`` task runs in a spawned worker (its parent is this
+   process, not a zygote) that sees one device, loads the kernel library
+   from ``ray_tpu_torch/_build`` and holds K1-K3 at [8, 1024, 12, 64] bf16
+   causal to their plain versions under phase 2's tolerances; prints the
+   worker's cold start. (b) Phase 14a's cell through ``TorchDistTrainer``
+   on ``runtime=ray_tpu_torch``: the rank in a ``num_gpus=1`` worker with
+   the node manager's ``CUDA_VISIBLE_DEVICES``, NCCL at world 1, phase 14a's
+   gates (losses, 24/12/12 launches a step counted in the rank, the
+   checkpoint at step 3 and the resume); prints the step ms beside phase
+   4's and the rank's peak memory. (c) Phase 13a's bf16 KV frame (268 MB)
+   put on the card by a ``num_gpus=1`` actor and got on the card here, bit
+   for bit, the arena's ``device_staged_bytes`` charged with its bytes, a
+   second get in the actor a local hit; prints staging and rebuild GB/s
+   beside 13a's in-process numbers. (d) PPO on the numpy CartPole with its
+   learner on the card in a ``num_gpus=1`` actor and two rollout workers
+   in CPU processes: one iteration against the in-process runtime's on the
+   CPU (phase 12's tolerances and near-tie rule); prints each iteration's
+   ms, env steps/s and the learner's share beside phase 12's PPO.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -1894,6 +1917,7 @@ def rl_algo_phase(seed):
     log(f"rl-algo ok: 8 algorithms, 2 parity iterations, the learner group "
         f"and a checkpoint in {results['phase_s']:.1f} s")
     log("rl-algo metrics: " + json.dumps(results))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -2324,6 +2348,7 @@ def serve_app_phase(tm, gen, fa, seed):
     results["phase_s"] = time.perf_counter() - t0
     log(f"serve-app phase ok in {results['phase_s']:.1f} s")
     log("serve-app metrics: " + json.dumps(results))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -2976,6 +3001,391 @@ def sharded_phase(tm, fa, run):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the port's own runtime (``ray_tpu_torch.init``) on the card: a
+# GPU worker process with its CUDA_VISIBLE_DEVICES from the node manager,
+# the main path's trainer rank in one, a CUDA tensor across processes, and
+# a card learner with CPU rollout processes.
+
+RUNTIME_CPUS = 4
+
+
+def runtime_gpu_probe(t_submit, tol):
+    """16a, in a ``num_gpus=1`` worker: its GPU, parent and cold start
+    (the process's age when the task began, from /proc; torch's import in
+    a fresh interpreter of this worker's environment; the first CUDA
+    call), then K1-K3 at the training shape against their plain versions,
+    from the kernel library in ``ray_tpu_torch/_build``."""
+    t_enter = time.time()
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    age_s = time.clock_gettime(time.CLOCK_BOOTTIME) - \
+        start_ticks / os.sysconf("SC_CLK_TCK")
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    import_s = float(subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); "
+         "import torch; print(time.perf_counter() - t)"],
+        check=True, capture_output=True, text=True).stdout)
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    errors = check_kernels(fa, B * H, L, L, D, torch.bfloat16, True, **tol)
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(),
+            "pid": os.getpid(), "ppid": os.getppid(),
+            "spawn_ms": (t_enter - t_submit) * 1e3,
+            "process_age_ms": age_s * 1e3,
+            "torch_import_ms": import_s * 1e3,
+            "first_cuda_ms": (t_cuda - t_enter) * 1e3,
+            "errors": errors,
+            "launches": {k.symbol.removeprefix("rtt_"): k.launches
+                         for k in fa.KERNELS},
+            "library": _kernels._libs["flash_attention"]._name,
+            "build_dir": str(_kernels.BUILD_DIR)}
+
+
+def runtime_gang_loop(config):
+    """16b: ``gang_loop`` in the rank's own process, each report carrying
+    the rank's flash launches since the loop began (counted there) and the
+    GPU the node manager gave the rank."""
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    report = rt_train.report
+
+    def counted(metrics, checkpoint=None):
+        return report(dict(
+            metrics, launches={k.symbol.removeprefix("rtt_"): k.launches
+                               for k in fa.KERNELS},
+            cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+            gpu_ids=os.environ.get("RAY_TPU_TORCH_GPU_IDS"),
+            device_count=torch.cuda.device_count()), checkpoint=checkpoint)
+
+    fa.reset_launches()
+    rt_train.report = counted
+    try:
+        gang_loop(config)
+    finally:
+        rt_train.report = report
+
+
+def runtime_fit(rt, fa, storage, resume=None):
+    """One ``TorchDistTrainer.fit()`` of ``runtime_gang_loop`` on the port's
+    runtime: one rank in a ``num_gpus=1`` worker, NCCL. The driver's own
+    flash counts stay 0: the kernels run in the rank."""
+    from ray_tpu_torch import train as rt_train
+
+    trainer = rt_train.TorchDistTrainer(
+        runtime_gang_loop,
+        train_loop_config={"steps": WARMUP_STEPS + TIMED_STEPS},
+        scaling_config=rt_train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=rt_train.RunConfig(name="runtime-gang",
+                                      storage_path=storage),
+        backend="torch_dist", resume_from_checkpoint=resume, runtime=rt)
+    fa.reset_launches()
+    result = trainer.fit()
+    if not result.ok:
+        raise AssertionError(f"runtime-train: fit failed: {result.error}")
+    here = {k.symbol: k.launches for k in fa.KERNELS}
+    if any(here.values()):
+        raise AssertionError(f"runtime-train: the driver launched {here}")
+    return result
+
+
+def runtime_train(rt, tm, fa, run, nm):
+    """16b: the main path through the port's runtime, at phase 14a's cell
+    and gates."""
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
+                      train_batch(cfg.vocab_size), "runtime phase-4 again",
+                      cfg.n_layers)
+    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
+    tol = max(GANG_LOSS_ATOL, spread)
+    del again
+    gc_collect()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    with tempfile.TemporaryDirectory(
+            dir=os.path.abspath("chiprun_out")) as storage:
+        t0 = time.perf_counter()
+        result = runtime_fit(rt, fa, storage)
+        fit_s = time.perf_counter() - t0
+        hist = result.metrics_history
+        losses = [m["loss"] for m in hist]
+        last = hist[-1]
+        ids = last["gpu_ids"]
+        if not ids or last["cuda_visible_devices"] != ",".join(
+                nm._gpu_tokens[int(i)] for i in ids.split(",")) or \
+                last["device_count"] != 1:
+            raise AssertionError(f"runtime-train: the rank saw "
+                                 f"{last['cuda_visible_devices']} for GPU "
+                                 f"ids {ids}, {last['device_count']} devices")
+        for name, per_step in want.items():
+            if last["launches"][name] != per_step * steps:
+                raise AssertionError(f"runtime-train: {name} launched "
+                                     f"{last['launches'][name]} times in "
+                                     f"{steps} steps in the rank")
+        err = max(abs(a - b) for a, b in zip(losses, run.losses))
+        if len(losses) != steps or err > tol:
+            raise AssertionError(f"runtime-train: losses {losses} vs phase "
+                                 f"4's {run.losses} (tol {tol})")
+        if result.checkpoint.to_dict()["step"] != GANG_CKPT_STEP:
+            raise AssertionError("runtime-train: no checkpoint at step 3")
+        resumed = runtime_fit(rt, fa, storage, result.checkpoint)
+        rest = steps - GANG_CKPT_STEP - 1
+        rlast = resumed.metrics_history[-1]
+        for name, per_step in want.items():
+            if rlast["launches"][name] != per_step * rest:
+                raise AssertionError(f"runtime-train: resumed {name} "
+                                     f"launched {rlast['launches'][name]}")
+        tail = [m["loss"] for m in resumed.metrics_history]
+        resume_err = max(abs(a - b) for a, b in
+                         zip(tail, losses[GANG_CKPT_STEP + 1:]))
+        if [m["step"] for m in resumed.metrics_history] != list(
+                range(GANG_CKPT_STEP + 1, steps)) or resume_err > tol:
+            raise AssertionError(f"runtime-train: resumed losses {tail} vs "
+                                 f"{losses[GANG_CKPT_STEP + 1:]}")
+    step_ms = statistics.median(m["s"] for m in hist[WARMUP_STEPS:]) * 1e3
+    out = {"losses": losses, "loss_err": err, "tol": tol,
+           "resume_err": resume_err, "launches": last["launches"],
+           "resumed_launches": rlast["launches"],
+           "cuda_visible_devices": last["cuda_visible_devices"],
+           "step_ms": step_ms, "phase4_step_ms": run.step_ms,
+           "fit_s": fit_s, "peak_gb": max(m["peak"] for m in hist) / 1e9}
+    log(f"runtime-train ok: TorchDistTrainer on runtime=ray_tpu_torch, 1 "
+        f"rank in a num_gpus=1 worker (CUDA_VISIBLE_DEVICES="
+        f"{out['cuda_visible_devices']} from the node manager), NCCL, "
+        f"gpt2-125m batch {B} seq {L}: losses = phase 4's within {err:.3e} "
+        f"(tol {tol:.1e}); launches in the rank {last['launches']} in "
+        f"{steps} steps; resumed at step {GANG_CKPT_STEP + 1} within "
+        f"{resume_err:.3e}, launches {rlast['launches']}")
+    log(f"runtime-train step_ms {step_ms:.2f} (median of {TIMED_STEPS}; all "
+        f"{[round(m['s'] * 1e3, 2) for m in hist]}), phase 4 "
+        f"{run.step_ms:.2f} ms; the rank's peak memory {out['peak_gb']:.2f} "
+        f"GB; first fit {fit_s:.1f} s; card: {gpu_line()}")
+    return out
+
+
+class FrameHolder:
+    """16c: a ``num_gpus=1`` actor that puts phase 13a's bf16 KV frame from
+    its card and gets it back in its own process."""
+
+    def put_frame(self):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private import device_objects as tdo
+
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        self.k = torch.randn(KV_FRAME_SHAPE, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        tdo.reset_stats()
+        t0 = time.perf_counter()
+        ref = rt.put(self.k)
+        put_ms = (time.perf_counter() - t0) * 1e3
+        return [ref], put_ms, tdo.stats(), self.k.nbytes
+
+    def get_again(self, refs):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private import device_objects as tdo
+
+        tdo.reset_stats()
+        back = rt.get(refs[0])
+        return back is self.k, tdo.stats()
+
+
+def runtime_frame(rt, in_process):
+    """16c: the 268 MB bf16 frame put on the card by one process, got on
+    the card by another, bit for bit, and charged to the arena."""
+    from ray_tpu_torch._private import device_objects as tdo
+    from ray_tpu_torch._private import worker as tworker
+
+    arena = tworker.global_worker().store
+    holder = rt.remote(FrameHolder).options(num_gpus=1).remote()
+    before = arena.stats_ex()["device_staged_bytes"]
+    refs, put_ms, put_stats, nbytes = rt.get(holder.put_frame.remote())
+    staged = arena.stats_ex()["device_staged_bytes"] - before
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    want = torch.randn(KV_FRAME_SHAPE, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    tdo.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = rt.get(refs[0])
+    torch.cuda.synchronize()
+    get_ms = (time.perf_counter() - t0) * 1e3
+    got_stats = tdo.stats()
+    if not (back.is_cuda and back.dtype == torch.bfloat16
+            and torch.equal(back.view(torch.uint8), want.view(torch.uint8))):
+        raise AssertionError("runtime-frame: the frame differs across "
+                             "processes")
+    if staged != nbytes or put_stats["puts"] != 1 or \
+            got_stats["rebuilds"] != 1:
+        raise AssertionError(f"runtime-frame: staged {staged} B of {nbytes};"
+                             f" put {put_stats}, get {got_stats}")
+    hit, again = rt.get(holder.get_again.remote(refs))
+    if not hit or again["local_hits"] != 1 or again["rebuilds"] != 0:
+        raise AssertionError(f"runtime-frame: second get in the actor's "
+                             f"process {again}, same tensor {hit}")
+    rt.kill(holder)
+    gb = nbytes / 1e9
+    out = {"bytes": nbytes, "put_ms": put_ms, "put_gb_per_s": gb / put_ms
+           * 1e3, "get_ms": get_ms, "get_gb_per_s": gb / get_ms * 1e3,
+           "device_staged_bytes": staged,
+           "in_process": in_process["bfloat16"]}
+    log(f"runtime-frame ok: {list(KV_FRAME_SHAPE)} bf16 ({nbytes} B) put on "
+        f"the card by a num_gpus=1 actor, got on the card here bit for bit;"
+        f" arena device_staged_bytes +{staged}; the actor's second get a "
+        f"local hit, no copy. Put (staging) {put_ms:.1f} ms "
+        f"({out['put_gb_per_s']:.2f} GB/s), get (rebuild) {get_ms:.1f} ms "
+        f"({out['get_gb_per_s']:.2f} GB/s); in process (13a) put "
+        f"{in_process['bfloat16']['put_gb_per_s']:.2f} GB/s, rebuild "
+        f"{in_process['bfloat16']['cuda_gb_per_s']:.2f} GB/s; card: "
+        f"{gpu_line()}")
+    return out
+
+
+class PPOHost:
+    """16d: PPO with its learner on the card, in a ``num_gpus=1`` actor;
+    its two rollout workers are CPU processes of the same runtime."""
+
+    def __init__(self, seed):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import rllib as rl
+
+        self.algo = rl.PPOConfig(seed=seed).environment(
+            NumpyCartPole).build(runtime=rt, device="cuda",
+                                 worker_device="cpu")
+        self.calls = time_updates(self.algo, "update_from_batch")
+
+    def weights(self):
+        return {k: v.cpu() for k, v in self.algo.get_weights().items()}
+
+    def train(self):
+        self.calls.clear()
+        t0 = time.perf_counter()
+        m = self.algo.train()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (m, ms, sum(t for t, _ in self.calls) * 1e3,
+                dict(self.calls[0][1][0]), self.weights())
+
+    def stop(self):
+        self.algo.stop()
+
+
+def runtime_rl(rt, seed, phase12):
+    """16d: PPO's card learner with CPU rollout processes against the same
+    iteration on the in-process runtime on the CPU."""
+    from ray_tpu_torch import rllib as rl
+
+    def make_cfg():
+        return rl.PPOConfig(seed=seed).environment(NumpyCartPole)
+
+    host = rt.remote(PPOHost).options(num_gpus=1).remote(seed)
+    weights = rt.get(host.weights.remote())
+    rows = [rt.get(host.train.remote()) for _ in range(2)]
+    rt.get(host.stop.remote())
+    rt.kill(host)
+    cpu = make_cfg().build(device="cpu")
+    calls = time_updates(cpu, "update_from_batch")
+    want = cpu.train()
+    wbatch, ww = dict(calls[0][1][0]), cpu.get_weights()
+    cpu.stop()
+    got, _, _, gbatch, gw = rows[0]
+    split = rl_first_action_split(make_cfg(), weights, gbatch, wbatch)
+    if split is not None:
+        log(f"runtime-rl: near-tie at batch row {split}; the iterations "
+            f"part there, so only rows before it are compared")
+        m_err = p_err = None
+    else:
+        if (got["timesteps_this_iter"], got["episode_return_mean"]) != \
+                (want["timesteps_this_iter"], want["episode_return_mean"]):
+            raise AssertionError(f"runtime-rl: {got} vs {want}")
+        if set(got) != set(want):
+            raise AssertionError(f"runtime-rl: metrics {sorted(got)}")
+        keys = set(want) - {"env_steps_per_sec", "episode_return_mean"}
+        m_err = max(close(f"runtime-rl {k}", torch.tensor(float(got[k])),
+                          torch.tensor(float(want[k])), *RL_METRIC_TOL)
+                    for k in keys)
+        p_err = max(close(f"runtime-rl {k}", v, ww[k], *RL_PARAM_TOL)
+                    for k, v in gw.items())
+    its = [{"ms": ms, "env_steps": m["timesteps_this_iter"],
+            "env_steps_per_sec": m["env_steps_per_sec"],
+            "learner_ms": lms, "learner_share": lms / ms}
+           for m, ms, lms, _, _ in rows]
+    out = {"iterations": its, "metric_err": m_err, "param_err": p_err,
+           "near_tie_row": split, "phase12_ppo": phase12}
+    ref = "not run in this call" if phase12 is None else json.dumps(
+        phase12["iterations"])
+    log(f"runtime-rl ok: PPO on runtime=ray_tpu_torch, learner on cuda in a"
+        f" num_gpus=1 actor, 2 rollout workers in CPU processes; one "
+        f"iteration = the in-process runtime's on the CPU (metrics max "
+        f"|diff| {m_err}, params {p_err}); iterations "
+        f"{[{k: round(v, 3) for k, v in r.items()} for r in its]}; phase "
+        f"12's PPO (in process, on the card): {ref}; card: {gpu_line()}")
+    return out
+
+
+def runtime_phase(tm, fa, run, tol, seed, phase12=None, in_process=None):
+    """Phase 16: the port's own runtime on the card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as tworker
+
+    t0 = time.perf_counter()
+    if in_process is None:
+        in_process = kv_frame()
+        gc_collect()
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        res = rt.cluster_resources()
+        if res.get("GPU") != 1:
+            raise AssertionError(f"runtime: the node counts GPUs {res}")
+        nm = tworker._global_cluster.nm
+        zygotes = {z["proc"].pid for z in nm._zygotes}
+        probe = rt.remote(runtime_gpu_probe).options(num_gpus=1)
+        t_submit = time.time()
+        p = rt.get(probe.remote(t_submit, tol), timeout=300)
+        cold_ms = (time.time() - t_submit) * 1e3
+        want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        if p["cuda_visible_devices"] != nm._gpu_tokens[0] or \
+                p["device_count"] != 1 or p["ppid"] != os.getpid() or \
+                p["ppid"] in zygotes or p["launches"] != want or \
+                not p["library"].startswith(p["build_dir"] + os.sep):
+            raise AssertionError(f"runtime: GPU worker {p}")
+        log(f"runtime start-up ok: GPU {res['GPU']:.0f} detected; a num_gpus"
+            f"=1 task in pid {p['pid']} (parent {p['ppid']}, this process, "
+            f"no zygote) with CUDA_VISIBLE_DEVICES="
+            f"{p['cuda_visible_devices']}, {p['device_count']} device; K1-K3 "
+            f"at [{B}, {L}, {H}, {D}] bf16 causal against their plain "
+            f"versions in that worker: max |diff| {p['errors']}, launches "
+            f"{p['launches']}, library {p['library']}; cold start "
+            f"{p['spawn_ms']:.0f} ms from submit to the task's first line "
+            f"(the process {p['process_age_ms']:.0f} ms old then: "
+            f"interpreter, imports, registration, dispatch; torch's import "
+            f"alone {p['torch_import_ms']:.0f} ms in a fresh interpreter "
+            f"there), then {p['first_cuda_ms']:.0f} ms for the first CUDA "
+            f"call; first result back after {cold_ms:.0f} ms; card: "
+            f"{gpu_line()}")
+        out = {"gpu_worker": {k: p[k] for k in (
+            "spawn_ms", "process_age_ms", "torch_import_ms",
+            "first_cuda_ms", "errors", "launches")}}
+        out["train"] = runtime_train(rt, tm, fa, run, nm)
+        gc_collect()
+        out["frame"] = runtime_frame(rt, in_process)
+        gc_collect()
+        out["rl"] = runtime_rl(rt, seed, phase12)
+    finally:
+        rt.shutdown()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"runtime phase ok in {out['phase_s']:.1f} s")
+    log("runtime metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2985,7 +3395,7 @@ def main() -> int:
                          "decode step into chiprun_out/")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
-    ap.add_argument("--only", choices=["sharded"],
+    ap.add_argument("--only", choices=["sharded", "runtime"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -3089,6 +3499,17 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.only == "runtime":
+        runtime = runtime_phase(tm, fa, run, bf16, args.seed)
+        for row in rows:
+            row["runtime_launches"] = runtime["train"]["launches"][
+                row["name"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
@@ -3107,12 +3528,17 @@ def main() -> int:
           if args.profile else None)
     torch.cuda.empty_cache()
     rl_phase(args.seed)
-    rl_algo_phase(args.seed)
-    serve_app_phase(tm, gen, fa, args.seed)
+    rl_algo = rl_algo_phase(args.seed)
+    serve_app = serve_app_phase(tm, gen, fa, args.seed)
     gang = gang_phase(tm, fa, run, args.seed)
     gc_collect()
     sharded = sharded_phase(tm, fa, run)
+    gc_collect()
+    runtime = runtime_phase(tm, fa, run, bf16, args.seed,
+                            phase12=rl_algo["ppo"],
+                            in_process=serve_app["kv_frame"])
     for row in rows:
+        row["runtime_launches"] = runtime["train"]["launches"][row["name"]]
         row["trainer_launches"] = gang["trainer"]["launches"][row["name"]]
         row["sharded_launches"] = {
             name: [r[row["name"]] for r in sharded[name]["launches"]]

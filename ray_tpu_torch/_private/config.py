@@ -1,85 +1,440 @@
-"""The port's copy of the ``ray_tpu/_private/config.py`` knobs its serving
-tier, collectives and gang trainer read, under the reference's names and
-defaults. Each can be
-overridden per process with a ``RAY_TPU_<NAME>`` environment variable, as
-the reference's are, and in code with ``config.set(name, value)``."""
+"""Typed runtime configuration registry.
+
+Equivalent in role to the reference's ``RAY_CONFIG`` macro registry
+(reference: src/ray/common/ray_config_def.h, ray_config.h:47): every knob has
+a typed default, can be overridden per-process with a ``RAY_TPU_TORCH_<NAME>``
+environment variable, and can be shipped cluster-wide as a JSON system-config
+blob at node start. The port's copy of ``ray_tpu/_private/config.py``: the
+runtime's knobs and those of the port's serving tier and gang trainer,
+under their reference names, with the port's own prefix, so that neither
+runtime reads the other's variables.
+"""
 
 from __future__ import annotations
 
+import json
 import os
 import threading
-from typing import Any, Dict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
 
-_ENV_PREFIX = "RAY_TPU_"
-
-_DEFAULTS: Dict[str, Any] = {
-    # Treat torch.Tensor as a store object: raw bytes out of band, rebuilt
-    # on the producer's device (``_private/device_objects.py``).
-    "device_objects_enabled": True,
-    # Times one admitted request may be migrated (replica death, engine
-    # failure, unresolvable KV handoff) before it is shed typed.
-    "serve_request_max_migrations": 3,
-    # Bound on resolving a prefill -> decode KV handoff in ``adopt_kv``.
-    "serve_kv_adopt_timeout_s": 60.0,
-    # Fault injection for engines built with an empty
-    # ``EngineConfig.fault_inject`` ("step_error:after=N" |
-    # "die:after_tokens=N").
-    "serve_fault_inject": "",
-    # Gang fault tolerance (``parallel/collective.py``, ``train/``): the
-    # supervisor pings each member, and each collective member polls its
-    # group's poison flag, at this period.
-    "gang_heartbeat_s": 1.0,
-    # Missed pings before a wedged-but-alive member is declared dead.
-    "gang_ping_miss_limit": 30,
-    # Deadline for one WorkerGroup.poll() round across all members.
-    "gang_poll_timeout_s": 30.0,
-    # Exponential backoff between gang re-formations, and its cap.
-    "gang_restart_backoff_s": 0.5,
-    "gang_restart_backoff_max_s": 30.0,
-    # On poison, abort a torch.distributed world that still has an op in
-    # flight after 2x the heartbeat (what aborts a NCCL communicator).
-    "gang_poison_teardown_enabled": True,
-    # Deadline for one collective op (a torch_dist world's own timeout).
-    "collective_op_timeout_s": 300.0,
-    # Deadline for group formation (coordinator lookup, address exchange,
-    # world join).
-    "collective_rendezvous_timeout_s": 60.0,
-}
+_ENV_PREFIX = "RAY_TPU_TORCH_"
 
 
-def _coerce(default: Any, raw: Any) -> Any:
-    if isinstance(default, bool):
-        if isinstance(raw, bool):
-            return raw
-        return str(raw).lower() in ("1", "true", "yes", "on")
-    return type(default)(raw)
+@dataclass
+class _ConfigEntry:
+    name: str
+    default: Any
+    type: type
+    doc: str
 
 
 class Config:
-    """The knobs as attributes; ``set`` changes one for this process."""
+    """Singleton-style config registry with env / JSON overrides."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._entries: Dict[str, _ConfigEntry] = {}
         self._values: Dict[str, Any] = {}
-        for name, default in _DEFAULTS.items():
-            raw = os.environ.get(_ENV_PREFIX + name.upper())
-            self._values[name] = default if raw in (None, "") \
-                else _coerce(default, raw)
+        self._lock = threading.Lock()
+
+    def define(self, name: str, default: Any, doc: str = "") -> None:
+        entry = _ConfigEntry(name, default, type(default), doc)
+        self._entries[name] = entry
+        self._values[name] = self._load_env(entry)
+
+    def _load_env(self, entry: _ConfigEntry) -> Any:
+        raw = os.environ.get(_ENV_PREFIX + entry.name.upper())
+        if raw is None or raw == "":
+            # Set-but-empty (`RAY_TPU_TORCH_FOO= cmd`) means unset: coercing
+            # "" would crash int/float knobs and silently flip bool
+            # knobs to False.
+            return entry.default
+        return self._coerce(entry, raw)
+
+    def refresh_from_env(self, name: str) -> Any:
+        """Re-read ``RAY_TPU_TORCH_<NAME>`` into the registry (typed) and
+        return the current value. For the few knobs whose consumers
+        historically honored env changes made AFTER import (address,
+        store_so, usage_stats_enabled): the env, when present, wins over
+        the import-time snapshot; an unset env leaves programmatic
+        ``set()`` values untouched."""
+        entry = self._entries[name]
+        raw = os.environ.get(_ENV_PREFIX + name.upper())
+        if raw is not None and raw != "":
+            with self._lock:
+                self._values[name] = self._coerce(entry, raw)
+        return self._values[name]
+
+    @staticmethod
+    def _coerce(entry: _ConfigEntry, raw: Any) -> Any:
+        if entry.type is bool:
+            if isinstance(raw, bool):
+                return raw
+            return str(raw).lower() in ("1", "true", "yes", "on")
+        if entry.type is int:
+            return int(raw)
+        if entry.type is float:
+            return float(raw)
+        return entry.type(raw)
 
     def get(self, name: str) -> Any:
         return self._values[name]
 
-    def set(self, name: str, value: Any) -> None:
-        if name not in _DEFAULTS:
-            raise KeyError(f"unknown config knob {name!r}")
-        with self._lock:
-            self._values[name] = _coerce(_DEFAULTS[name], value)
-
     def __getattr__(self, name: str) -> Any:
+        # Called only when normal attribute lookup fails.
         try:
             return self.__dict__["_values"][name]
         except KeyError:
             raise AttributeError(name) from None
 
+    def set(self, name: str, value: Any) -> None:
+        with self._lock:
+            if name not in self._entries:
+                raise KeyError(f"unknown config: {name}")
+            self._values[name] = self._coerce(self._entries[name], value)
+
+    def apply_system_config(self, blob: str | Dict[str, Any]) -> None:
+        """Apply a cluster-wide JSON config blob (unknown keys ignored)."""
+        if isinstance(blob, str):
+            blob = json.loads(blob) if blob else {}
+        for k, v in blob.items():
+            if k in self._entries:
+                self.set(k, v)
+
+    def dump(self) -> Dict[str, Any]:
+        return dict(self._values)
+
+    def diff_nondefault(self) -> Dict[str, Any]:
+        """Knobs whose current value differs from the registered default
+        — the blob a spawner ships to a child control-plane process so
+        programmatic ``set()`` overrides (tests, system_config) survive
+        the process boundary the way env vars do on their own."""
+        return {k: v for k, v in self._values.items()
+                if v != self._entries[k].default}
+
 
 config = Config()
+_d = config.define
+
+# --- core worker / task submission -----------------------------------------
+_d("fetch_chunk_bytes", 5 * 1024 * 1024,
+   "Chunk size for node-to-node object transfer (reference uses 5 MiB, "
+   "object_manager.proto / ray_config_def.h:332).")
+_d("pull_max_inflight_chunks", 8,
+   "Admission control: chunks in flight per pulling process across ALL "
+   "concurrent pulls (reference: pull_manager.h:52 bounded pull quota). "
+   "Bounds heap use to chunks * fetch_chunk_bytes on top of the arena "
+   "allocation.")
+
+# --- object store -----------------------------------------------------------
+_d("zero_copy_min", 1 * 1024 * 1024,
+   "Objects at or above this many bytes deserialize zero-copy out of the "
+   "shm arena (read-only views, object pinned until the last view is "
+   "collected); below it they are copied out before unpickling. The "
+   "tradeoff: a lower threshold saves memcpy bandwidth on mid-size "
+   "objects but pays pin bookkeeping (a weakref.finalize + a store "
+   "refcount hold per get) and couples eviction to consumer GC — a "
+   "long-lived small view can pin its slot for the life of the process. "
+   "Raise it if the store thrashes on pinned slots; lower it for "
+   "read-heavy numeric workloads. Env: RAY_TPU_TORCH_ZERO_COPY_MIN.")
+_d("device_objects_enabled", True,
+   "Treat torch.Tensor as a store object: put stages the tensor's bytes "
+   "out of band, once, into the object's arena slab (JSON header + raw "
+   "bytes); get rebuilds it with one copy onto the producer's device "
+   "when this process has it (_private/device_objects.py); a get of a "
+   "ref this process itself put returns the tensor itself. Off = "
+   "torch's own pickling, the bytes in band.")
+_d("store_so", "",
+   "Override path of the native store library (librtpu_store.so). Used "
+   "by the sanitizer harnesses (benchmarks/run_tsan_store.sh, "
+   "run_asan_store.sh) to inject an instrumented build without "
+   "touching the tracked one. Empty = the bundled library.")
+_d("object_spilling_threshold", 0.8,
+   "Store fill fraction above which sealed objects spill to disk "
+   "(reference: ray_config_def.h object_spilling_threshold).")
+
+# --- raylet / scheduling ----------------------------------------------------
+_d("num_workers_soft_limit", -1,
+   "Elastic ceiling of the shared CPU worker pool: queue-depth "
+   "pressure grows the pool up to this many workers, and idle workers "
+   "above the num_cpus base retire after worker_idle_timeout_s. "
+   "-1 means num_cpus plus a small burst headroom.")
+_d("worker_start_timeout_s", 30.0, "Timeout for a worker process to register.")
+_d("worker_idle_timeout_s", 300.0, "Idle workers above the soft limit exit.")
+_d("raylet_heartbeat_period_ms", 1000, "Node -> GCS liveness report period.")
+_d("health_check_period_ms", 3000,
+   "Health-check evaluation period: the death budget is threshold * this "
+   "(reference: ray_config_def.h health_check_period_ms=3000).")
+_d("health_check_failure_threshold", 5,
+   "Missed health checks before the GCS declares a node dead "
+   "(reference default 5 -> a 15s budget; a node must be silent that "
+   "long while its socket stays open to be declared dead).")
+
+# --- distributed refcounting / lineage -------------------------------------
+_d("refcount_enabled", True,
+   "Track ObjectRef lifetimes cluster-wide and free store memory when the "
+   "last reference dies (reference: core_worker/reference_count.h:61).")
+_d("refcount_flush_ms", 100,
+   "Batch interval for shipping local ref-count deltas to the GCS.")
+_d("free_grace_s", 1.0,
+   "Seconds a zero-ref object is kept before its locations are freed "
+   "(absorbs in-flight borrower registrations, e.g. a ref pickled to "
+   "another process whose incref hasn't landed yet).")
+_d("max_lineage_entries", 10000,
+   "Task specs retained for lineage reconstruction (LRU-evicted beyond "
+   "this; reconstructing evicted lineage fails cleanly as ObjectLost).")
+_d("max_lineage_reconstructions", 3,
+   "Times a lost object may be rebuilt by re-running its producing task "
+   "(reference: object_recovery_manager.h:41 + task_manager resubmit).")
+
+# --- local-first scheduling (node-manager lease grants) ---------------------
+# The reference's fast paths are always on in the port, without their A/B
+# toggles: local-first leases and actor creation, spec templates, batched
+# submit and completion frames, the shm submit/completion rings, the
+# completion absorb split with work stealing, inline returns, and CPU
+# workers forked from zygotes.
+_d("local_lease_backoff_s", 1.0,
+   "After the GCS signals classic-queue pressure (revoke_local_lease), "
+   "the node manager declines overlapping local grants for this long so "
+   "spilled-back work drains through the fair central queue first.")
+
+# --- driver submit fast path (spec templates / batch frames / shm ring) -----
+_d("submit_ring_bytes", 4 * 1024 * 1024,
+   "Data capacity of the per-client submit ring. At ~200 bytes per "
+   "nop-task spec blob the default holds ~20k in-flight submissions "
+   "before ring-full spills to the socket path.")
+
+# --- worker turnaround fast path (inline returns / batched completions) ----
+_d("worker_inline_return_max", 8192,
+   "Largest framed result (bytes) that may travel in-band. Results "
+   "over it — and ALL results carrying pickle-5 out-of-band buffers "
+   "(numpy, device tensors) — take the store path. 0 disables "
+   "inline returns.")
+_d("worker_inline_cache_bytes", 32 * 1024 * 1024,
+   "Byte budget of each process's local inline-object LRU (delivered "
+   "lease results + object_locations inline replies). Eviction is "
+   "safe — the GCS inline table / store path serves a miss — so this "
+   "only bounds driver memory, not correctness.")
+_d("gcs_inline_table_bytes", 64 * 1024 * 1024,
+   "Per-job byte budget of the GCS inline-object table. Pressure "
+   "materializes the job's oldest inline entries into a node's object "
+   "store (worker_inline_spills_total counts them); entries are "
+   "dropped only after the store copy's location report confirms.")
+_d("task_done_flush_slack_s", 0.002,
+   "Upper bound on how long a worker may hold a finished task's "
+   "completion record while its queue is non-empty (a slack-timer "
+   "thread flushes past it). Within the window, back-to-back fast "
+   "tasks coalesce into one completion frame; a slow successor task "
+   "can delay a finished predecessor's result by at most this long. "
+   "Queue-empty still flushes immediately — a lone task never waits.")
+
+# --- driver completion ingestion fast path (absorb split / shm ring) -------
+_d("completion_ring_bytes", 4 * 1024 * 1024,
+   "Data capacity of the per-driver completion ring. At ~300 bytes "
+   "per small-return completion record the default holds ~13k "
+   "undrained completions before appends spill to the GCS-only path.")
+_d("worker_completion_ring_bytes", 1024 * 1024,
+   "Data capacity of each per-worker completion segment. At ~300 "
+   "bytes per small-return completion record the default holds ~3k "
+   "undrained completions per worker before appends spill to the "
+   "socket path.")
+
+# --- direct task transport (worker leases) ---------------------------------
+_d("lease_pipeline_depth", 10,
+   "Tasks in flight per leased worker before queueing at the caller "
+   "(reference: max_tasks_in_flight_per_worker, direct_task_transport).")
+_d("lease_idle_timeout_s", 2.0,
+   "A leased worker idle this long is returned to the node's pool and "
+   "its resources released (reference: worker lease idle return).")
+_d("lease_max_workers_per_shape", 16,
+   "Cap on concurrently leased workers per scheduling shape per caller.")
+_d("lease_report_flush_ms", 100,
+   "Batch interval for reporting lease-task completions (object "
+   "locations + lineage specs) to the GCS.")
+
+_d("worker_zygote_count", 4,
+   "Fork-servers per node manager. One zygote serializes spawns behind "
+   "a single ~10-30ms fork conversation (fork of a torch-preloaded image "
+   "is page-table-bound); K zygotes let an actor-churn or scale-out "
+   "burst fork K workers concurrently. Each zygote is one idle "
+   "pre-imported python process of resident memory — lower this on "
+   "memory-tight nodes.")
+_d("gpu_worker_idle_timeout_s", 300.0,
+   "A GPU-bound worker parked between same-shape GPU tasks is retired "
+   "after this idle time (its GPUs return to the node free list). "
+   "Generous by default: re-spawning pays a torch import and CUDA init.")
+
+# --- gang fault tolerance (collective groups / train worker gangs) ----------
+_d("gang_heartbeat_s", 1.0,
+   "Liveness/poison heartbeat for gang-scheduled groups: the WorkerGroup "
+   "supervisor pings each member actor at this period, and every "
+   "collective member polls the group coordinator's poison flag at this "
+   "period (so a pending collective raises GangMemberDiedError within "
+   "~2x this interval of the gang being poisoned, instead of waiting "
+   "out the full collective op timeout). Env: RAY_TPU_TORCH_GANG_HEARTBEAT_S.")
+_d("gang_ping_miss_limit", 30,
+   "Consecutive missed liveness pings before the gang supervisor "
+   "declares a wedged-but-alive member dead. Deliberately generous "
+   "(30 s at the default heartbeat): a rank whose main thread is "
+   "GIL-starved by a long compile or step must not be declared dead "
+   "— an actor whose PROCESS died is detected within ~1 heartbeat via "
+   "the GCS actor-failure notification, not this budget, so this only "
+   "bounds truly wedged-alive ranks (vs the old 300 s op deadline).")
+_d("gang_poll_timeout_s", 30.0,
+   "Deadline for one WorkerGroup.poll() round (shared across all "
+   "members; polls are submitted in parallel). A rank whose reply "
+   "misses the round is treated as still running — its in-flight poll "
+   "is re-awaited next round (~100ms later) so no drained report is "
+   "lost — and a dead rank surfaces as state='dead' instead of "
+   "aborting the whole poll batch (the supervisor owns death "
+   "detection).")
+_d("gang_restart_backoff_s", 0.5,
+   "Base of the exponential backoff between gang re-formation attempts "
+   "after a gang-member death (doubles per restart).")
+_d("gang_restart_backoff_max_s", 30.0,
+   "Cap on the gang re-formation backoff.")
+_d("gang_poison_teardown_enabled", True,
+   "On poison, after a grace of 2x the gang heartbeat with a collective "
+   "still in flight, abort the wedged torch.distributed world so "
+   "survivors blocked in a collective unwedge (what aborting a NCCL "
+   "communicator does).")
+_d("collective_op_timeout_s", 300.0,
+   "Deadline for one collective operation (was a hardcoded 300 s); "
+   "poisoned groups raise GangMemberDiedError long before this.")
+_d("collective_rendezvous_timeout_s", 60.0,
+   "Deadline for group-formation rendezvous (coordinator actor lookup, "
+   "address exchange, world join).")
+
+# --- memory monitor ---------------------------------------------------------
+_d("memory_monitor_refresh_ms", 250,
+   "Node memory sampling period; 0 disables the monitor "
+   "(reference: memory_monitor.h:52 kMonitorIntervalMs).")
+_d("memory_usage_threshold", 0.95,
+   "Fraction of the node memory limit above which the worker-killing "
+   "policy engages (reference: ray_config_def.h memory_usage_threshold).")
+_d("memory_limit_bytes", 0,
+   "Absolute node memory budget for workers+store; 0 derives it from "
+   "system MemTotal. Tests set a small value to trigger OOM kills.")
+
+# --- gcs --------------------------------------------------------------------
+_d("address", "",
+   "Default cluster address for init()/CLI when none is given "
+   "explicitly (the RAY_TPU_TORCH_ADDRESS of the classic `ray start` "
+   "workflow). Empty = start a new local cluster.")
+_d("gcs_rpc_timeout_s", 60.0,
+   "Bound on driver/worker -> GCS control RPCs (register, actor "
+   "bookkeeping, KV, state queries). A wedged GCS then surfaces as a "
+   "TimeoutError at the call site instead of a forever-parked control "
+   "thread; paths with their own deadline semantics (e.g. blocking "
+   "named-actor lookup) pass an explicit timeout instead.")
+_d("gcs_storage", "memory", "GCS table storage backend: memory | file.")
+_d("gcs_file_storage_path", "", "Path for the file storage backend.")
+_d("gcs_out_of_process", False,
+   "Run the GCS in its own subprocess (its own interpreter/GIL) instead "
+   "of inside the head process (reference: the standalone gcs_server "
+   "beside the raylet). The head node manager and the driver then talk "
+   "to it purely over the protocol socket, exactly like worker nodes — "
+   "GCS handler concurrency stops competing with the head NM and the "
+   "driver for one GIL. Default off so unit tests don't pay a process "
+   "spawn per init(); `ray_tpu_torch start --head` and the scale bench turn "
+   "it on. Env: RAY_TPU_TORCH_GCS_OUT_OF_PROCESS.")
+_d("gcs_bootstrap_timeout_s", 30.0,
+   "How long the spawner waits for the GCS subprocess to bind its "
+   "listener and write the bootstrap file (address + pid) into the "
+   "session dir before declaring the launch failed.")
+_d("gcs_recovery_grace_s", 10.0,
+   "After a GCS restart, how long restored actors wait for their node to "
+   "re-register before being treated as node-dead (restart budget applies).")
+
+# --- observability (per-node agent) -----------------------------------------
+_d("flight_recorder_events", 4096,
+   "Ring-buffer capacity of the per-node flight recorder (recent task "
+   "events/spans, hardware samples, worker lifecycle events). The ring "
+   "auto-dumps to <session_dir>/flight_recorder/ when a worker dies "
+   "unexpectedly or a gang supervisor declares slice death, so every "
+   "gang restart leaves a postmortem artifact.")
+_d("agent_stack_timeout_s", 5.0,
+   "Bound on one cluster-wide in-band stack capture (ray_tpu_torch stack): "
+   "per-worker dump_stacks RPCs are fanned out in parallel and workers "
+   "that cannot answer within it are reported as errors, not waited on.")
+_d("profiler_hz", 67,
+   "Sampling rate of the in-process profiler (ray_tpu_torch profile): the "
+   "daemon sampler thread walks sys._current_frames() this many times "
+   "per second. 67 Hz is the py-spy-style default — off the 100 Hz "
+   "beat of periodic loops, cheap enough to leave on (the 'profiler' "
+   "toggle in benchmarks/microbench_compare.py is the overhead A/B).")
+_d("profiler_max_frames", 64,
+   "Frames kept per sampled stack (leaf side wins; deeper stacks get a "
+   "<truncated> root marker). Bounds folded-key size under recursion.")
+_d("profiler_max_stacks", 2048,
+   "Distinct folded stacks held by the profiler's per-process table. A "
+   "new stack arriving at a full table evicts the smallest-count entry "
+   "and accounts its samples in profiler_dropped_samples_total — deep/"
+   "churning workloads see a truncated-but-honest profile, never "
+   "unbounded memory.")
+
+# --- gpu --------------------------------------------------------------------
+_d("gpu_topology", "",
+   "Slice label of a node with GPUs (its NVLink domain): placement groups "
+   "whose bundles all want GPUs try to fit inside one slice first.")
+
+# --- tracing ----------------------------------------------------------------
+_d("trace_sample_rate", 1.0,
+   "Head-based span sampling for high-rate traffic: the probability "
+   "that a NEW trace root (serve ingress/handle request, driver-side "
+   "root span) is kept. Decided ONCE at the root and propagated with "
+   "the trace context, so a trace is never half-kept; FAILURE spans "
+   "(errored requests, ingress sheds) are ALWAYS emitted regardless of "
+   "the decision, while routine consumer cancels sample like 'ok'. "
+   "1.0 keeps everything (the default); task events themselves are "
+   "never sampled out — only spans.")
+
+# --- serve fault tolerance (the LLM tier's; the serve control plane's and
+# the ingress's knobs come with those modules) ------------------------------
+_d("serve_request_max_migrations", 3,
+   "How many times one admitted request may be migrated to another "
+   "replica after a replica death / engine failure / drain before it is "
+   "shed with a typed 503 (RequestMigrationExhaustedError). Streaming "
+   "migrations rebuild the resume descriptor from tokens already "
+   "delivered client-side and continue at the next token — never a "
+   "duplicate, never a gap; unary calls are retried from scratch "
+   "(deterministic per-request sampling keys make both bit-identical).")
+_d("serve_kv_adopt_timeout_s", 60.0,
+   "Bound on resolving a prefill->decode KV handoff in adopt_kv; "
+   "expiry raises typed KVAdoptTimeoutError (dead prefill replica) so "
+   "the disaggregated router re-runs prefill on a healthy replica "
+   "instead of failing the request.")
+_d("serve_fault_inject", "",
+   "Deterministic serve-tier fault injection for tests and chaos "
+   "benches, honored by the LLM engine (also settable per-engine via "
+   "EngineConfig.fault_inject, which is how it reaches replica "
+   "processes). 'step_error:after=N' raises from the Nth decode step "
+   "(exercises _poison -> resume-descriptor migration); "
+   "'die:after_tokens=N' hard-exits the process after N emitted tokens "
+   "(exercises the ActorDiedError migration path). Each spec fires "
+   "once per process. Empty disables.")
+
+# --- modes of the reference that the port leaves out ----------------------
+# Setting one is refused at init(), not quietly ignored; ROADMAP.md queues
+# each for a later slice.
+UNPORTED = {
+    "lockdep_enabled": "the runtime lock-order witness (_private/lockdep.py)",
+    "profiler_always_on": "the always-on sampling profiler",
+    "submit_template_verify": "the spec-template byte-for-byte verify mode",
+}
+
+
+def refuse_unported() -> None:
+    for name, what in UNPORTED.items():
+        var = _ENV_PREFIX + name.upper()
+        if os.environ.get(var, "").lower() in ("1", "true", "yes", "on"):
+            raise NotImplementedError(
+                f"{var}: {what} is not ported; ROADMAP.md queues it for a "
+                f"later slice")
+
+
+# --- logging ----------------------------------------------------------------
+_d("usage_stats_enabled", True,
+   "Anonymous usage-stats reporting toggle "
+   "(RAY_TPU_TORCH_USAGE_STATS_ENABLED=0 opts out, matching the reference's "
+   "RAY_USAGE_STATS_ENABLED contract).")

@@ -28,7 +28,16 @@ The contract is the reference's, bounded copies:
   put as, and ``lookup_local`` returns that tensor itself, with no copy
   (``local_hits``). The ``ray_tpu`` runtime asks only its JAX registry for
   local hits, so ``kv_transfer`` consults this one first. An entry lives
-  as long as its ref does, as a store object does.
+  as long as its ref does, as a store object does. The port's own runtime
+  keeps the reference's per-worker registry instead (``core_note_put``,
+  ``core_lookup_local``, ``note_return``), keyed by object id.
+* **arena accounting** — the reducer runs deep inside a pickler, so it
+  accrues the bytes it stages in a per-thread ledger; the port's
+  ``serialization.serialize`` drains it (``take_pending_stage_bytes``)
+  into the object, and the store charges the arena-wide
+  ``device_staged_bytes`` on seal, as the reference does for
+  ``jax.Array``. Another runtime's serializer never drains the ledger, so
+  there the bytes show only in this module's ``staged_bytes``.
 
 The hook is installed with ``install(register_reducer_hook,
 previous_hook)``: the store has one hook slot, so the port's hook hands
@@ -38,10 +47,9 @@ finds the two in ``runtime._private.serialization`` when the runtime has
 one (the ``ray_tpu`` module does), without importing anything;
 ``LocalRuntime`` needs no hook, since its values never leave the process.
 
-Not ported: the arena-wide ``device_staged_bytes`` counter (charged from
-the reference's own per-thread ledger, which this hook cannot reach;
-``staged_bytes`` here counts the same bytes per process) and donation
-(``_donate_result``, which needs the worker's return path).
+On the port's own runtime the serializer installs the hook itself at its
+first serialize (``maybe_install``). Not ported: donation
+(``_donate_result``); the port's runtime refuses the option.
 """
 
 from __future__ import annotations
@@ -71,6 +79,22 @@ _install_lock = threading.Lock()
 _local: "weakref.WeakKeyDictionary[Any, torch.Tensor]" = \
     weakref.WeakKeyDictionary()
 _local_lock = threading.Lock()
+
+
+class _TLS(threading.local):
+    """Per-thread staging ledger, drained by ``take_pending_stage_bytes``."""
+
+    def __init__(self):
+        self.pending_stage_bytes = 0
+
+
+_tls = _TLS()
+
+
+def take_pending_stage_bytes() -> int:
+    n = _tls.pending_stage_bytes
+    _tls.pending_stage_bytes = 0
+    return n
 
 
 def _bump(key: str, n: int = 1) -> None:
@@ -127,6 +151,7 @@ def reduce_tensor(obj: Any) -> Optional[tuple]:
     raw = _host_bytes(obj.detach())
     _bump("puts")
     _bump("staged_bytes", raw.nbytes)
+    _tls.pending_stage_bytes += raw.nbytes
     return (rebuild_tensor, (header, pickle.PickleBuffer(raw)))
 
 
@@ -197,6 +222,32 @@ def lookup_local(ref: Any) -> Optional[torch.Tensor]:
     return t
 
 
+def core_note_put(core, oid_bytes: bytes, value: Any) -> None:
+    """The port's runtime: record a tensor this worker put or returned,
+    for by-reference gets (the reference's ``note_put``)."""
+    if not isinstance(value, torch.Tensor) or not enabled():
+        return
+    core._device_local[oid_bytes] = value
+
+
+def core_lookup_local(core, oid_bytes: bytes) -> Optional[torch.Tensor]:
+    """The port's runtime: the tensor this worker put as ``oid_bytes``, or
+    None (the reference's ``lookup_local``)."""
+    if not enabled():
+        return None
+    t = core._device_local.get(oid_bytes)
+    if t is not None:
+        _bump("local_hits")
+    return t
+
+
+def note_return(core, oid_bytes: bytes, value: Any) -> None:
+    """Post-staging hook for task and actor returns: register the tensor
+    for same-process gets. (No donation: the port's runtime refuses
+    ``_donate_result``.)"""
+    core_note_put(core, oid_bytes, value)
+
+
 # ------------------------------------------------------------- the hook
 
 def install(register_reducer_hook: Callable[[Any], None],
@@ -236,4 +287,15 @@ def install_on(runtime: Any) -> Optional[Callable[[], None]]:
         claim = getattr(ser, "_maybe_install_device_hook", None)
         if claim is not None:
             claim()
+            if getattr(ser._reducer_hook, "torch_device_objects", False):
+                return None  # the port's own serializer installs this hook
         return install(ser.register_reducer_hook, ser._reducer_hook)
+
+
+def maybe_install() -> None:
+    """Install the hook into the port's own serializer, once."""
+    from ray_tpu_torch._private import serialization
+
+    with _install_lock:
+        if serialization._reducer_hook is None:
+            install(serialization.register_reducer_hook, None)

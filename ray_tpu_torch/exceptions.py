@@ -1,14 +1,121 @@
-"""The port's exception types: the serving tier's and the gang's (copies of
-those in ``ray_tpu/exceptions.py``, on a local base: the port imports
-nothing of ``ray_tpu``)."""
+"""Public exception types of the port: the runtime's (copies of those in
+``ray_tpu/exceptions.py``: user-facing errors that cross process boundaries
+are serialized and re-raised on the caller with the remote traceback
+attached), the serving tier's and the gang's, on a local base: the port
+imports nothing of ``ray_tpu``."""
 
 from __future__ import annotations
 
+import traceback
 from typing import Optional
 
 
 class RayTpuError(Exception):
     """Base class of the port's framework errors."""
+
+
+class RayTaskError(RayTpuError):
+    """A task or actor method raised an exception remotely.
+
+    Stored as the task's return object; re-raised from ``get`` with the
+    remote traceback as the message (reference: exceptions.py RayTaskError).
+    """
+
+    def __init__(self, function_name: str = "", traceback_str: str = "",
+                 cause: Optional[BaseException] = None):
+        self.function_name = function_name
+        self.traceback_str = traceback_str
+        self.cause = cause
+        super().__init__(f"task {function_name} failed:\n{traceback_str}")
+
+    @classmethod
+    def from_exception(cls, function_name: str, exc: BaseException) -> "RayTaskError":
+        tb = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))
+        # Keep the cause only if it survives pickling; the traceback string
+        # always survives.
+        return cls(function_name, tb, exc)
+
+    def as_instanceof_cause(self) -> BaseException:
+        """Return an exception that is an instance of the original type."""
+        if self.cause is not None and not isinstance(self.cause, RayTaskError):
+            return self.cause
+        return self
+
+
+class RayActorError(RayTpuError):
+    """The actor died before or while executing the submitted method."""
+
+    def __init__(self, actor_id: str = "", msg: str = "actor died"):
+        self.actor_id = actor_id
+        super().__init__(f"{msg} (actor {actor_id})")
+
+
+class ActorDiedError(RayActorError):
+    pass
+
+
+class ActorUnavailableError(RayActorError):
+    """The actor is temporarily unreachable (e.g. restarting)."""
+
+
+class TaskCancelledError(RayTpuError):
+    def __init__(self, task_id: str = ""):
+        self.task_id = task_id
+        super().__init__(f"task {task_id} was cancelled")
+
+
+class WorkerCrashedError(RayTpuError):
+    """The worker process executing the task died unexpectedly."""
+
+
+class ObjectLostError(RayTpuError):
+    """The object's value was lost from all nodes and cannot be recovered."""
+
+    def __init__(self, object_id: str = "", msg: str = ""):
+        self.object_id = object_id
+        super().__init__(msg or f"object {object_id} is lost")
+
+
+class ObjectReconstructionFailedError(ObjectLostError):
+    pass
+
+
+class OwnerDiedError(ObjectLostError):
+    """The object's owner process died, so its value can never be resolved."""
+
+
+class GetTimeoutError(RayTpuError, TimeoutError):
+    """``get`` timed out before the object became available."""
+
+
+class CompletionAbsorbError(RayTpuError):
+    """The driver's completion-absorb stage died on a frame.
+
+    The lease conn thread parks raw completion frames; a dedicated
+    absorb executor unpickles and applies them. If absorption raises
+    (corrupt frame, absorb-thread death), every return object the
+    frame's lease still had in flight gets this error attached and its
+    waiters woken — a typed failure at get(), never a silent hang."""
+
+
+class RuntimeEnvSetupError(RayTpuError):
+    """Preparing a worker's runtime environment failed."""
+
+
+class NodeDiedError(RayTpuError):
+    pass
+
+
+class PlacementGroupSchedulingError(RayTpuError):
+    """The placement group could not be scheduled with current resources."""
+
+
+class OutOfMemoryError(RayTpuError):
+    """Raised when the object store cannot admit an object."""
+
+
+class PendingCallsLimitExceeded(RayTpuError):
+    """Actor's pending call queue exceeded max_pending_calls."""
 
 
 class ServeOverloadedError(RayTpuError):
@@ -76,12 +183,12 @@ class RequestMigrationExhaustedError(ServeOverloadedError):
                  "migrations": self.migrations})
 
 
-class KVAdoptTimeoutError(RayTpuError, TimeoutError):
+class KVAdoptTimeoutError(GetTimeoutError):
     """``kv_transfer.adopt_kv`` could not resolve the handoff KV refs within
     ``serve_kv_adopt_timeout_s``: the prefill replica that owns them is
     likely dead. Typed so the disaggregated router re-runs prefill on
-    another replica instead of failing the request; a ``TimeoutError``, as
-    the reference's is through its ``GetTimeoutError``."""
+    another replica instead of failing the request; a ``GetTimeoutError``,
+    as the reference's is."""
 
     def __init__(self, message: str = "KV handoff adoption timed out", *,
                  timeout_s: float = 0.0):

@@ -8,12 +8,17 @@ flags, so an edited source or header builds anew and an unchanged one is
 built once. The libraries link nothing beyond the CUDA runtime: the TMA's
 tensor-map encoder comes through the runtime's entry-point query.
 Nothing here runs at import: the first launch builds, or a caller builds
-every source at once, in parallel, with :func:`build_all`.
+every source at once, in parallel, with :func:`build_all`. Processes that
+build at once (the runtime's workers, say) take turns on a lock file in
+the build directory, so a library is compiled once and never read half
+written.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,13 +67,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path = BUILD_DIR):
+    """Hold the build directory's lock file (``flock``) across processes."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Sequence[str] = ()) -> Dict[str, Path]:
     """Build the named sources (all of ``csrc/*.cu`` by default), one
     ``nvcc`` each, all started together. Returns name -> library path; the
     compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
     kept beside each library as ``.log``. Raises if any build fails."""
     names = list(names) or sorted(p.stem for p in CSRC.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if all(library_path(name).exists() for name in names):
+        return {name: library_path(name) for name in names}
+    with build_lock():
+        return _build_locked(names)
+
+
+def _build_locked(names: List[str]) -> Dict[str, Path]:
     jobs = []
     for name in names:
         out = library_path(name)

@@ -31,7 +31,9 @@ from ray_tpu_torch.rllib.policy import PolicySpec
 from ray_tpu_torch.rllib.ppo import PPOConfig, PPOLearner
 from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
 from ray_tpu_torch.runtime import LocalRuntime
-from ray_tpu_torch.train.worker_group import check_gang, rank_runtime_env
+from ray_tpu_torch.train.worker_group import (
+    check_gang, rank_runtime_env, runtime_assigns_gpus,
+)
 
 
 @dataclasses.dataclass
@@ -180,13 +182,15 @@ class DDPPO(Algorithm):
         worker_cls = self.runtime.remote(_DDPPOWorker)
         cuda = self.device.type == "cuda"
         pin = cuda and not isinstance(self.runtime, LocalRuntime)
+        assigns = runtime_assigns_gpus(self.runtime)
         self.workers = []
         for i in range(n):
             opts: Dict[str, Any] = {
                 "num_cpus": 1,
-                "num_gpus": 1 if cuda and config.collective_backend
-                == "torch_dist" else 0}
-            if pin:
+                "num_gpus": 1 if cuda and (config.collective_backend
+                                           == "torch_dist" or assigns)
+                else 0}
+            if pin and not assigns:
                 opts["runtime_env"] = rank_runtime_env(None, i, self.device)
             self.workers.append(worker_cls.options(**opts).remote(
                 config.env_creator, self.spec, config, world=n, rank=i,

@@ -36,6 +36,9 @@ class ScalingConfig:
             res["GPU"] = 1.0
         return res
 
+    def bundles(self) -> List[Dict[str, float]]:
+        return [self.worker_resources() for _ in range(self.num_workers)]
+
 
 @dataclasses.dataclass
 class FailureConfig:

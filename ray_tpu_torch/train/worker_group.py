@@ -39,6 +39,7 @@ from ray_tpu_torch.parallel import collective
 from ray_tpu_torch.runtime import LocalRuntime
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train.checkpoint import Checkpoint
+from ray_tpu_torch.train.config import ScalingConfig
 from ray_tpu_torch.util.metrics import Counter, Histogram
 
 logger = logging.getLogger("ray_tpu_torch.train.gang")
@@ -80,7 +81,7 @@ def check_gang(runtime: Any, num_workers: int) -> None:
             f"the in-process LocalRuntime runs one rank, not {num_workers}: "
             f"a torch_dist world needs one process per rank and its ranks "
             f"must join at once. Pass a runtime with processes (such as the "
-            f"ray_tpu module).")
+            f"ray_tpu_torch module).")
 
 
 def gang_local_ranks(runtime: Any, pg: Any, num_workers: int,
@@ -104,14 +105,22 @@ def gang_local_ranks(runtime: Any, pg: Any, num_workers: int,
     return local
 
 
+def runtime_assigns_gpus(runtime: Any) -> bool:
+    """True for a runtime whose node manager hands each GPU worker its own
+    ``CUDA_VISIBLE_DEVICES`` (the port's own, ``ray_tpu_torch``)."""
+    return bool(getattr(runtime, "ASSIGNS_GPUS", False))
+
+
 def rank_runtime_env(runtime_env: Optional[Dict[str, Any]], local_rank: int,
                      device: torch.device) -> Dict[str, Any]:
-    """``runtime_env`` plus, for a CUDA rank, its GPU: the node manager
-    assigns only TPU chips, so the rank with local rank ``k`` sees only the
-    ``k``-th GPU of its node, as its process's ``cuda:0``. A mask the user
-    set (``CUDA_VISIBLE_DEVICES`` in ``runtime_env``'s ``env_vars``, else in
-    this process's environment, which the runtime's workers inherit) is
-    honoured: ``k`` indexes the GPUs it lists."""
+    """``runtime_env`` plus, for a CUDA rank on a runtime that does not
+    assign GPUs (``ray_tpu`` assigns only TPU chips), its GPU: the rank
+    with local rank ``k`` sees only the ``k``-th GPU of its node, as its
+    process's ``cuda:0``. A mask the user set (``CUDA_VISIBLE_DEVICES`` in
+    ``runtime_env``'s ``env_vars``, else in this process's environment,
+    which the runtime's workers inherit) is honoured: ``k`` indexes the
+    GPUs it lists. A runtime that assigns GPUs (``runtime_assigns_gpus``)
+    skips this: its rank keeps the node manager's mask as it is."""
     env = dict(runtime_env or {})
     if device.type == "cuda":
         env_vars = dict(env.get("env_vars") or {})
@@ -257,8 +266,9 @@ class WorkerGroup:
         if existing_pg is not None:
             self.pg = existing_pg
         elif hasattr(pg_api, "placement_group"):
-            bundles = [dict(resources_per_worker)
-                       for _ in range(num_workers)]
+            bundles = ScalingConfig(
+                num_workers=num_workers,
+                resources_per_worker=dict(resources_per_worker)).bundles()
             self.pg = pg_api.placement_group(bundles,
                                              strategy=placement_strategy)
             self.pg.wait(timeout_seconds=60)
@@ -294,7 +304,8 @@ class WorkerGroup:
                                 placement_group_bundle_index=i
                                 + self._bundle_offset)
                 if not local:
-                    env = rank_runtime_env(runtime_env, local_ranks[i], dev)
+                    env = (runtime_env if runtime_assigns_gpus(self._rt) else
+                           rank_runtime_env(runtime_env, local_ranks[i], dev))
                     if env:
                         opts["runtime_env"] = env
                 self.workers.append(cls.options(**opts).remote(

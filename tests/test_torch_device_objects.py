@@ -263,3 +263,51 @@ def test_cross_process_task_returns_tensor_rebuilt_once(ray_1cpu):
     assert torch.equal(back, torch.arange(n, dtype=torch.float32))
     assert tdo.stats()["rebuilds"] == 1
     assert tdo.stats()["puts"] == 0       # staged in the worker, not here
+
+
+# --------------------------------------------- on the port's own runtime
+
+
+def test_frame_is_charged_by_the_ports_serializer():
+    """The port's own serializer installs the hook itself and drains the
+    staging ledger into the object: the arena-wide counter is charged."""
+    from ray_tpu_torch._private import serialization as tser
+
+    t = _tensor(4 << 20)
+    tdo.reset_stats()
+    sobj = tser.serialize(t)
+    assert getattr(tser._reducer_hook, "torch_device_objects", False)
+    assert len(sobj.metadata) < 64 * 1024
+    assert sobj.device_bytes == t.nbytes
+    assert tdo.stats()["staged_bytes"] == t.nbytes
+    assert torch.equal(tser.deserialize_framed(
+        memoryview(sobj.to_bytes())), t)
+
+
+def test_cross_process_round_trip_charges_the_arena_on_the_ports_runtime():
+    """``runtime=ray_tpu_torch``: a task's tensor crosses to the driver,
+    rebuilt once, and its worker's staging charges the node arena's
+    ``device_staged_bytes`` with the tensor's bytes. A second get in the
+    process that put a tensor is a local hit, with no rebuild."""
+    import torch_core_programs as progs
+    from torch_runtimes import ports_runtime
+
+    from ray_tpu_torch._private import worker as tworker
+
+    n = 1 << 21
+    with ports_runtime(num_cpus=1, object_store_memory=256 * 1024 * 1024
+                       ) as rt:
+        arena = tworker.global_worker().store
+        before = arena.stats_ex()["device_staged_bytes"]
+        tdo.reset_stats()
+        back = rt.get(rt.remote(progs.make_tensor).remote(n))
+        assert type(back) is torch.Tensor
+        assert torch.equal(back, torch.arange(n, dtype=torch.float32))
+        assert tdo.stats()["rebuilds"] == 1
+        assert tdo.stats()["puts"] == 0
+        assert arena.stats_ex()["device_staged_bytes"] - before == 4 * n
+        t = _tensor(1 << 20)
+        ref = rt.put(t)
+        assert rt.get(ref) is t
+        assert tdo.stats()["local_hits"] == 1
+        assert tdo.stats()["rebuilds"] == 1

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ray_tpu_torch, nor chip_smoke.py,
 imports jax, optax, cloudpickle, msgpack or anything of the JAX package
-ray_tpu (the card's machine has none of them), and its entry points do not
-drift to the CPU without a GPU."""
+ray_tpu (the card's machine has none of them), its entry points do not
+drift to the CPU without a GPU, and its own runtime (driver and workers)
+loads none of them and keeps its own store library and session root."""
 
 import ast
 import pathlib
@@ -54,7 +55,11 @@ def test_sources_found():
             "router.py", "collective.py", "data_parallel.py",
             "worker_group.py", "session.py", "checkpoint.py",
             "ddppo.py", "mesh.py", "sharding.py", "pipeline.py",
-            "attention.py", "graft_entry.py"} <= names
+            "attention.py", "graft_entry.py", "api.py", "actor.py",
+            "remote_function.py", "node_manager.py", "gcs.py",
+            "worker.py", "worker_main.py", "worker_zygote.py",
+            "plasma.py", "pickler.py", "serialization.py", "lease.py",
+            "protocol.py", "placement_group.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -76,7 +81,12 @@ def test_importing_every_module_loads_none_of_them():
             "ray_tpu_torch.train.torch", "ray_tpu_torch.rllib.ddppo",
             "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
             "ray_tpu_torch.parallel.pipeline",
-            "ray_tpu_torch.graft_entry"} \
+            "ray_tpu_torch.graft_entry", "ray_tpu_torch.api",
+            "ray_tpu_torch._private.node_manager",
+            "ray_tpu_torch._private.gcs",
+            "ray_tpu_torch._private.worker_main",
+            "ray_tpu_torch._private.worker_zygote",
+            "ray_tpu_torch.object_store.plasma"} \
         <= {m.removesuffix(".__init__") for m in mods}
     code = ("import sys\nbefore = set(sys.modules)\n" +
             "".join(f"import {m}\n" for m in mods) +
@@ -175,3 +185,54 @@ def test_trainer_and_ddppo_raise_without_cuda(monkeypatch, tmp_path):
     assert algo.train()["timesteps_this_iter"] == 200
     algo.stop()
     TorchDistTrainer(lambda: None, device="cpu")
+
+
+_RUNTIME_PROBE = """
+import json, os, sys, tempfile
+sys.path.insert(0, {tests!r})
+before = set(sys.modules)
+import ray_tpu_torch as rt
+import torch_core_programs as progs
+from ray_tpu_torch._private import worker
+from ray_tpu_torch.object_store import plasma
+rt.init(num_cpus=1)
+try:
+    cluster = worker._global_cluster
+    facts = rt.get(rt.remote(progs.process_facts).remote(), timeout=60)
+    driver = sorted({{m.split(".")[0] for m in sys.modules}} - {{
+        m.split(".")[0] for m in before}})
+    print(json.dumps({{"driver": driver, "worker": facts["loaded"],
+                      "session": cluster.session_dir,
+                      "store_so": plasma._ensure_built(),
+                      "tmp": tempfile.gettempdir()}}))
+finally:
+    rt.shutdown()
+"""
+
+
+def test_ports_runtime_loads_no_reference_in_driver_or_worker():
+    """After ``ray_tpu_torch.init()``, neither ``ray_tpu`` nor jax (nor
+    cloudpickle or msgpack) is loaded, in a fresh driver and, through a
+    task, in a worker. The store library is the port's own build, under
+    ``ray_tpu_torch/_build``, and the session lives under the port's own
+    root."""
+    import json
+    import os
+
+    code = _RUNTIME_PROBE.format(tests=str(ROOT / "tests"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    got = json.loads(out.strip().splitlines()[-1])
+    assert "ray_tpu_torch" in got["driver"]
+    assert not [m for m in got["driver"] if _forbidden(m)], got["driver"]
+    assert got["worker"] == []
+    build = ROOT / "ray_tpu_torch" / "_build"
+    assert pathlib.Path(got["store_so"]).parent == build
+    from ray_tpu.object_store import plasma as jax_plasma
+
+    assert pathlib.Path(jax_plasma._SO_PATH).parent != build
+    assert got["session"].startswith(
+        os.path.join(got["tmp"], "ray_tpu_torch") + os.sep)
+    assert not got["session"].startswith("/tmp/ray_tpu" + os.sep)

@@ -170,3 +170,40 @@ def test_as_trainable_reports_every_iteration():
                         device="cpu")({"lr": 5e-4})
     assert [r["training_iteration"] for r in reports] == [1, 2, 3]
     assert base.lr == tr.A2CConfig().lr     # the trial's copy took the lr
+
+
+def test_learner_group_with_a_remote_learner_on_the_ports_runtime(
+        ray_cluster):
+    """``runtime=ray_tpu_torch``: one learner in a worker process of the
+    port's own runtime takes the same update, bit for bit, as the same
+    group on ``ray_tpu``, run first, and as a learner in this process."""
+    import functools
+
+    from torch_runtimes import ports_runtime
+
+    spec, cfg = tr.PolicySpec(obs_dim=4, num_actions=2), tr.PPOConfig(seed=3)
+    factory = functools.partial(tr.PPOLearner, spec, cfg, device="cpu")
+    batch = _random_ppo_batch(128)
+
+    def run(runtime):
+        group = tr.LearnerGroup(factory, num_learners=1, runtime=runtime)
+        try:
+            m = group.update_from_batch(batch, num_epochs=2,
+                                        minibatch_size=64,
+                                        rng=np.random.default_rng(1))
+            return m, group.get_weights()
+        finally:
+            group.stop()
+
+    m_ref, w_ref = run(ray_tpu)
+    with ports_runtime(restore=dict(num_cpus=4,
+                                    object_store_memory=128 * 1024 * 1024),
+                       num_cpus=2) as rt:
+        m_port, w_port = run(rt)
+    single = factory()
+    m_single = single.update_from_batch(batch, num_epochs=2,
+                                        minibatch_size=64,
+                                        rng=np.random.default_rng(1))
+    assert m_port == m_ref == m_single
+    _assert_equal_weights(w_port, w_ref)
+    _assert_equal_weights(w_port, single.get_weights())

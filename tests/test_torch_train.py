@@ -317,7 +317,7 @@ def test_ranks_pin_the_gpu_of_their_local_rank(monkeypatch):
     from types import SimpleNamespace
 
     from ray_tpu_torch.train.worker_group import (
-        gang_local_ranks, rank_runtime_env,
+        gang_local_ranks, rank_runtime_env, runtime_assigns_gpus,
     )
 
     table = {"bundles": [{"index": i, "node_id": n}
@@ -344,6 +344,11 @@ def test_ranks_pin_the_gpu_of_their_local_rank(monkeypatch):
         rank_runtime_env(None, 2, cuda)
     assert rank_runtime_env({"pip": []}, 0, torch.device("cpu")) == {
         "pip": []}
+    # The port's own runtime assigns GPUs itself: its ranks are not pinned.
+    import ray_tpu_torch
+
+    assert runtime_assigns_gpus(ray_tpu_torch)
+    assert not runtime_assigns_gpus(LocalRuntime())
 
 
 def _dist_train_loop(config):
@@ -497,3 +502,58 @@ def test_in_process_gang_of_one(tmp_path):
     assert result.ok, result.error
     assert [m["step"] for m in result.metrics_history] == [0, 1, 2]
     assert not dist.is_initialized()
+
+
+def test_two_rank_gang_on_the_ports_runtime_gives_ray_tpus_losses(ray_4cpu,
+                                                                  tmp_path):
+    """``runtime=ray_tpu_torch``: the same 2-rank gloo gang, run first on
+    ``ray_tpu`` and then on the port's own runtime (the two never at
+    once), gives the same losses and params, and both stay at JAX's."""
+    from torch_runtimes import ports_runtime
+
+    from ray_tpu_torch.models import transformer as tt
+
+    tokens = np.random.default_rng(3).integers(0, 256, (4, 33))
+    params0, want_losses, _ = _jax_gpt_run(tokens)
+
+    def fit(runtime, name):
+        trainer = TorchDistTrainer(
+            _gpt_loop,
+            train_loop_config={"params": params0, "tokens": tokens,
+                               "lr": GPT_LR, "wd": GPT_WD,
+                               "steps": GPT_STEPS},
+            scaling_config=ScalingConfig(num_workers=2),
+            run_config=RunConfig(name=name, storage_path=str(tmp_path)),
+            runtime=runtime, device="cpu")
+        result = trainer.fit()
+        assert result.ok, result.error
+        return ([m["loss"] for m in result.metrics_history],
+                tt.tree_leaves(result.checkpoint.to_pytree(device="cpu")))
+
+    ref_losses, ref_params = fit(ray_tpu, "gpt-ray-tpu")
+    with ports_runtime(restore=dict(num_cpus=4,
+                                    object_store_memory=128 * 1024 * 1024),
+                       num_cpus=4, object_store_memory=128 * 1024 * 1024
+                       ) as rt:
+        losses, params = fit(rt, "gpt-port")
+    assert losses == ref_losses
+    for a, b in zip(params, ref_params):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(losses, want_losses, **GPT_TOL)
+
+
+def test_scaling_config_bundles_match_jax():
+    """``ScalingConfig.bundles()``: one bundle of ``worker_resources()`` a
+    worker, as the reference's; ``use_gpu`` stands for ``use_tpu``."""
+    from ray_tpu.train import ScalingConfig as JaxScalingConfig
+
+    for kw, jkw in [({}, {}), ({"num_workers": 3}, {"num_workers": 3}),
+                    ({"num_workers": 2, "use_gpu": True},
+                     {"num_workers": 2, "use_tpu": True}),
+                    ({"num_workers": 2,
+                      "resources_per_worker": {"CPU": 2, "mem": 1}},
+                     {"num_workers": 2,
+                      "resources_per_worker": {"CPU": 2, "mem": 1}})]:
+        want = [{("GPU" if k == "TPU" else k): v for k, v in b.items()}
+                for b in JaxScalingConfig(**jkw).bundles()]
+        assert ScalingConfig(**kw).bundles() == want

@@ -8,6 +8,14 @@ torch, numpy and ``ray_tpu_torch`` only: the JAX side of a test runs in the
 pytest process. The rank functions below build a mesh over the first ranks
 of the world (``make_mesh(ranks=...)``; every rank of the world takes part
 in making it) and return numpy arrays.
+
+A world that timed out, lost a rank, or got an error from some of its
+ranks and not the same one from all, kills its ranks and refuses every
+later call at once with that first error: a rank that failed
+mid-collective leaves the others waiting in it, so a later call could
+only wait out its own timeout. The same error from every rank (a check
+each rank makes before any collective) leaves the world in step, and it
+stays usable.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ class World:
         ctx = mp.get_context("spawn")
         addr = f"127.0.0.1:{_free_port()}"
         self.n = n
+        self.error: Exception = None
         self.conns, self.procs = [], []
         for r in range(n):
             here, there = ctx.Pipe()
@@ -67,24 +76,56 @@ class World:
         self._collect()
 
     def _collect(self):
-        out, errors = [], []
+        out, errors = [], {}
         for r, c in enumerate(self.conns):
             if not c.poll(RANK_TIMEOUT_S):
-                raise TimeoutError(f"rank {r} gave no answer in "
-                                   f"{RANK_TIMEOUT_S} s")
-            ok, val = c.recv()
-            (out if ok else errors).append(val if ok else f"rank {r}: {val}")
+                self._fail(TimeoutError(f"rank {r} gave no answer in "
+                                        f"{RANK_TIMEOUT_S} s"))
+            try:
+                ok, val = c.recv()
+            except (EOFError, OSError) as e:
+                self._fail(RuntimeError(f"rank {r} is gone: {e!r}"))
+            if ok:
+                out.append(val)
+            else:
+                errors[r] = val
         if errors:
-            raise RuntimeError("\n".join(errors))
+            error = RuntimeError("\n".join(
+                f"rank {r}: {val}" for r, val in errors.items()))
+            if len(errors) < self.n or len(set(errors.values())) > 1:
+                self._fail(error)
+            raise error
         return out
 
+    def _fail(self, error: Exception):
+        """Kill the ranks, keep ``error`` for every later call, raise it."""
+        self.error = error
+        self._kill()
+        raise error
+
     def run(self, fn, *args):
-        """``fn(*args)`` on every rank; the ranks' results in rank order."""
-        for c in self.conns:
-            c.send((fn, args))
+        """``fn(*args)`` on every rank; the ranks' results in rank order.
+        Raises the world's first error at once after a failed call."""
+        if self.error is not None:
+            raise RuntimeError(
+                f"this world failed before: {self.error}") from self.error
+        try:
+            for c in self.conns:
+                c.send((fn, args))
+        except OSError as e:
+            self._fail(RuntimeError(f"a rank is gone: {e!r}"))
         return self._collect()
 
+    def _kill(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        for p in self.procs:
+            p.join(timeout=5)
+
     def close(self):
+        if self.error is not None:
+            return  # the ranks were killed when the world failed
         for c in self.conns:
             try:
                 c.send(None)
@@ -335,3 +376,23 @@ def pipeline_case(w_np, x_np, microbatches):
                          num_microbatches=microbatches)
     out.to_local().sum().backward()
     return gather_full(out).detach().numpy(), gather_full(w.grad).numpy()
+
+
+def fail_on(rank):
+    """Raise on ``rank`` only: the world's ranks answer unlike."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == rank:
+        raise ValueError(f"rank {rank} fails")
+    return dist.get_rank()
+
+
+def same_error():
+    """Raise the same error on every rank."""
+    raise ValueError("every rank fails alike")
+
+
+def whoami():
+    import torch.distributed as dist
+
+    return dist.get_rank()
