@@ -9,6 +9,7 @@
     python3 chip_smoke.py --seed N   # the serve run's weights and prompts
     python3 chip_smoke.py --only sharded  # phases 1-5 and 15 only
     python3 chip_smoke.py --only runtime  # phases 1-5 and 16 only
+    python3 chip_smoke.py --only serve    # phases 1-5 and 17 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -178,6 +179,31 @@ Phases, each printed on its own line, each fatal when it fails:
    in CPU processes: one iteration against the in-process runtime's on the
    CPU (phase 12's tolerances and near-tie rule); prints each iteration's
    ms, env steps/s and the learner's share beside phase 12's PPO.
+
+17. serve-plane: the serve control plane (``ray_tpu_torch/serve``: the
+   controller reconciling replica actors, handles routing on pushed loads,
+   the ``asyncio`` HTTP/SSE ingress with admission) on the port's own
+   runtime, 4 CPUs and the card's GPU: ``serve.start(http_port=<free
+   port>)``, then ``serve.run(build_llm_app(..., runtime=ray_tpu_torch,
+   mode="combined", ray_actor_options={"num_gpus": 1}))``, the engine in a
+   GPU replica actor of its own process; the controller, the proxy and
+   the router take no GPU. (a) 13(b)'s sizes: every prompt over HTTP
+   unary, HTTP SSE and the handle's ``generate_stream``, 4 client threads
+   each, gives the argmax rollout of ``models.forward`` (greedy) and a
+   solo engine's streams (temperature 0.8, top_k 50); every KV block
+   returned. (b) llama-7b at full width and depth, bf16, 13(c)'s engine
+   config: phase 10's 16 prompts from 16 client threads over HTTP SSE, then
+   through the handle; 13(c)'s gates (every budget met, every token in the
+   vocabulary, every KV block returned, first-token logits within
+   ``SERVE_LOGIT_ATOL`` of ``models.forward``, and each served first
+   token forward's argmax where that is clear); prints the replica's cold
+   start, TTFT p50/p99 and output tokens/s on both paths, the replica's
+   peak memory read in the actor, the ingress's admitted and shed counts,
+   and 13(c)'s in-process numbers of this call beside them. (c) At (a)'s
+   size, the GPU replica is killed: the controller replaces it through the
+   GCS's ``actor_state`` push, the replacement waits for the freed GPU,
+   and the next requests over HTTP give (a)'s greedy tokens; prints the
+   time from the kill to the replacement's first answer.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -1107,13 +1133,15 @@ def serve_run(gen, se, params, cfg, prompts, label, ec, n_new):
 def check_first_logits(tm, gen, params, cfg, prompts, tol):
     """Each prompt's first-token logits from chunked prefill (chunks of 512
     against pages of a fresh pool, as the engine runs them) against
-    ``models.forward`` on the prompt; both bf16."""
+    ``models.forward`` on the prompt; both bf16. Returns the largest
+    difference and, per prompt, ``models.forward``'s argmax and its margin
+    over the runner-up."""
     bs, width = 16, 2048 // 16
     pool = gen.init_paged_pool(cfg, 1 + 1024 // bs, bs, 1, width)
     table = torch.zeros(width, dtype=torch.int64, device="cuda")
     table[:1024 // bs] = torch.arange(1, 1 + 1024 // bs)
     fwd_cfg = dataclasses.replace(cfg, remat=False)
-    errs, agree, spread = [], 0, 0.0
+    errs, agree, spread, firsts = [], 0, 0.0, []
     with torch.no_grad():
         for p in prompts:
             kv = {"k": pool["k"], "v": pool["v"]}
@@ -1130,12 +1158,15 @@ def check_first_logits(tm, gen, params, cfg, prompts, tol):
                               logits, ref, tol, 0.0))
             agree += int(logits.argmax() == ref.argmax())
             spread = max(spread, ref.std().item())
+            top2 = ref.float().topk(2).values
+            firsts.append((int(ref.argmax()), float(top2[0] - top2[1])))
     del pool
     log(f"serve logits ok: chunked-prefill first-token logits vs "
         f"models.forward, {len(prompts)} prompts, max |diff| "
         f"{max(errs):.4f} (atol {tol}), median {statistics.median(errs):.4f}"
         f", logits' std up to {spread:.4f}; argmax agrees on "
         f"{agree}/{len(prompts)}")
+    return max(errs), firsts
 
 
 def profile_decode(gen, params, cfg, path):
@@ -2090,13 +2121,16 @@ def engine_stats(rt, name):
     return rt.serve.get_deployment_handle(name).serve_stats.remote().result()
 
 
-def serve_app_check(tm, gen, preset="llama-7b"):
-    """13(b): phase 9's sizes (two layers, f32) through the combined and the
-    disaggregated app on the in-process runtime, token-exact."""
-    from ray_tpu_torch._private import device_objects as tdo
-    from ray_tpu_torch.runtime import LocalRuntime
-    from ray_tpu_torch.serve.llm import EngineConfig, build_llm_app
+APP_CHECK_SAMPLING = dict(temperature=0.8, top_k=50)
+
+
+def app_check_refs(tm, gen, preset="llama-7b"):
+    """Phase 9's sizes (two layers, f32) and what an app must give there:
+    (engine config, prompts, tokens a request, sampled seeds, the argmax
+    rollout of ``models.forward``, a solo engine's sampled streams)."""
+    from ray_tpu_torch.serve.llm import EngineConfig
     from ray_tpu_torch.serve.llm import replicas as rp
+    from ray_tpu_torch.serve.llm.engine import InflightBatchEngine
 
     base = dict(preset=preset,
                 model_overrides={"n_layers": 2, "dtype": "float32"},
@@ -2119,16 +2153,29 @@ def serve_app_check(tm, gen, preset="llama-7b"):
                                     fwd_cfg)
                 seq.append(int(logits[0, -1].argmax()))
             rollout.append(seq[len(p):])
-    sampled = dict(temperature=0.8, top_k=50)
-    from ray_tpu_torch.serve.llm.engine import InflightBatchEngine
     solo = InflightBatchEngine(params, cfg, EngineConfig.from_dict(
-        dict(base, **sampled)), replica_id="app-solo", device=CARD)
+        dict(base, **APP_CHECK_SAMPLING)), replica_id="app-solo",
+        device=CARD)
     try:
         solo_streams = [solo.generate(p, n, seed=s)
                         for p, s in zip(prompts, seeds)]
     finally:
         solo.stop()
     del params
+    return base, prompts, n, seeds, rollout, solo_streams
+
+
+def serve_app_check(tm, gen, preset="llama-7b"):
+    """13(b): phase 9's sizes (two layers, f32) through the combined and the
+    disaggregated app on the in-process runtime, token-exact."""
+    from ray_tpu_torch._private import device_objects as tdo
+    from ray_tpu_torch.runtime import LocalRuntime
+    from ray_tpu_torch.serve.llm import build_llm_app
+    from ray_tpu_torch.serve.llm import replicas as rp
+
+    base, prompts, n, seeds, rollout, solo_streams = app_check_refs(
+        tm, gen, preset)
+    sampled = APP_CHECK_SAMPLING
 
     rt = LocalRuntime()
     results, batches = {}, []
@@ -3386,6 +3433,370 @@ def runtime_phase(tm, fa, run, tol, seed, phase12=None, in_process=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the serve control plane (``ray_tpu_torch/serve``: the controller,
+# replica actors, handles, the asyncio HTTP/SSE ingress with admission) on
+# the port's own runtime, the LLM engine in a ``num_gpus=1`` replica actor.
+
+PLANE_START_TIMEOUT_S = 900.0   # a replica's build at full llama-7b size
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_completion(port, body, timeout=600):
+    """One ``POST /v1/completions`` to the ingress. Unary: (status, parsed
+    body, seconds). ``stream: true``: (status, token chunks in order,
+    seconds to the first ``data:`` frame); the stream must end in
+    ``data: [DONE]``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/completions",
+                     body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if not body.get("stream") or resp.status != 200:
+            raw = resp.read()
+            return resp.status, json.loads(raw), time.perf_counter() - t0
+        chunks, first, buf, done = [], None, b"", False
+        while not done:
+            data = resp.read1(65536)
+            if not data:
+                break
+            buf += data
+            while b"\n\n" in buf and not done:
+                frame, buf = buf.split(b"\n\n", 1)
+                if not frame.startswith(b"data: "):
+                    continue
+                payload = frame[len(b"data: "):]
+                if payload == b"[DONE]":
+                    done = True
+                    break
+                msg = json.loads(payload)
+                if "error" in msg:
+                    raise AssertionError(f"serve-plane: stream error {msg}")
+                if first is None:
+                    first = time.perf_counter() - t0
+                chunks.append(msg["choices"][0]["tokens"])
+        if not done:
+            raise AssertionError("serve-plane: an SSE stream ended without "
+                                 "data: [DONE]")
+        return resp.status, chunks, first
+    finally:
+        conn.close()
+
+
+def http_clients(port, bodies):
+    """Every body from its own client thread, all at once. Returns (each
+    request's ``http_completion``, wall seconds)."""
+    import threading
+
+    out, errors = [None] * len(bodies), []
+    start = threading.Barrier(len(bodies) + 1)
+
+    def client(i):
+        try:
+            start.wait(timeout=60)
+            out[i] = http_completion(port, bodies[i])
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"serve-plane: HTTP client failed: {errors!r}")
+    bad = [o[:2] for o in out if o[0] != 200]
+    if bad:
+        raise AssertionError(f"serve-plane: HTTP answers {bad}")
+    return out, wall
+
+
+def plane_replica(rt, name, not_id=None, timeout_s=PLANE_START_TIMEOUT_S):
+    """The one replica of deployment ``name`` (another than ``not_id``) once
+    it answers a stats probe: (actor handle, its stats, seconds waited)."""
+    from ray_tpu_torch.serve.api import _controller
+
+    ctrl = _controller()
+    t0 = time.perf_counter()
+    while True:
+        reps = rt.get(ctrl.get_replicas.remote(name), timeout=60)
+        if reps and reps[0]._actor_id.hex() != not_id:
+            try:
+                stats = rt.get(reps[0].stats.remote(), timeout=5)
+                return reps[0], stats, time.perf_counter() - t0
+            except Exception:  # noqa: BLE001 — building, or just replaced
+                pass
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"serve-plane: no replica of {name} answered "
+                                 f"within {timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
+def plane_deploy(rt, serve, ec, name="llm"):
+    """``build_llm_app`` in combined mode, its engine in a ``num_gpus=1``
+    replica actor. Returns (root handle, seconds ``serve.run`` took,
+    seconds from ``serve.run`` to the engine replica's first answer, that
+    replica's handle and stats)."""
+    from ray_tpu_torch.serve.llm import build_llm_app
+
+    t0 = time.perf_counter()
+    handle = serve.run(build_llm_app(ec, runtime=rt, device=CARD,
+                                     mode="combined", name=name,
+                                     ray_actor_options={"num_gpus": 1}))
+    run_s = time.perf_counter() - t0
+    replica, stats, _ = plane_replica(rt, f"{name}-engine")
+    return handle, run_s, time.perf_counter() - t0, replica, stats
+
+
+def plane_tokens(unary=None, streamed=None, chunks=None):
+    if unary is not None:
+        return [body["choices"][0]["tokens"] for _, body, _ in unary]
+    if streamed is not None:
+        return [[t for c in ch for t in c] for _, ch, _ in streamed]
+    return [[t for c in cs for t in c] for cs in chunks]
+
+
+def plane_replace(rt, port, bodies, want):
+    """17(c): kill the engine's GPU replica; the controller learns of it from
+    the GCS's ``actor_state`` push and starts a replacement, which waits for
+    the freed GPU, builds, and serves 17(a)'s greedy tokens."""
+    from ray_tpu_torch.serve.api import _controller
+
+    ctrl = _controller()
+    (victim,) = rt.get(ctrl.get_replicas.remote("llm-engine"), timeout=60)
+    before = rt.get(ctrl.fault_stats.remote(), timeout=60)
+    old_pid = rt.get(victim.stats.remote(), timeout=60)["pid"]
+    t0 = time.perf_counter()
+    rt.kill(victim)
+    _, stats, _ = plane_replica(rt, "llm-engine",
+                                not_id=victim._actor_id.hex())
+    replace_s = time.perf_counter() - t0
+    res, _ = http_clients(port, bodies)
+    got = plane_tokens(unary=res)
+    faults = rt.get(ctrl.fault_stats.remote(), timeout=60)
+    restarts = faults["replica_restarts_total"] - \
+        before["replica_restarts_total"]
+    if got != want or restarts != 1 or stats["pid"] == old_pid:
+        raise AssertionError(f"serve-plane replace: tokens {got} vs {want}, "
+                             f"restarts {restarts}, pid {stats['pid']}")
+    ttr = faults["time_to_replace_s"][-1] if faults["time_to_replace_s"] \
+        else None
+    log(f"serve-plane replace ok: killed the GPU replica (pid {old_pid}); "
+        f"the controller saw its death through the actor_state push and "
+        f"started a replacement (pid {stats['pid']}) that waited for the "
+        f"freed GPU, built the model and answered in {replace_s:.2f} s from "
+        f"the kill (the controller's own clock, death to first probe: "
+        f"{ttr if ttr is None else round(ttr, 2)} s); the next requests over "
+        f"HTTP = the greedy rollout")
+    return {"replace_s": replace_s, "controller_time_to_replace_s": ttr,
+            "restarts": restarts}
+
+
+def plane_check(tm, gen, rt, serve, port):
+    """17(a): 13(b)'s sizes (llama-7b widths, two layers, f32) in a GPU
+    replica actor: every request over HTTP (unary and SSE) and through the
+    handle gives the argmax rollout of ``models.forward`` (greedy) and a
+    solo engine's streams (temperature 0.8, top_k 50). Then 17(c)."""
+    base, prompts, n, seeds, rollout, solo = app_check_refs(tm, gen)
+    gc_collect()
+    out = {}
+    for label, extra, want, sd in (
+            ("greedy", {}, rollout, [0] * len(prompts)),
+            ("sampled", APP_CHECK_SAMPLING, solo, seeds)):
+        handle, run_s, cold_s, replica, _ = plane_deploy(
+            rt, serve, dict(base, **extra))
+        bodies = [{"model": "llm", "prompt": p, "max_tokens": n, "seed": s}
+                  for p, s in zip(prompts, sd)]
+        unary, _ = http_clients(port, bodies)
+        streamed, _ = http_clients(port, [dict(b, stream=True)
+                                          for b in bodies])
+        chunks, _ = app_streams(handle, prompts, n, sd)
+        got = {"http": plane_tokens(unary=unary),
+               "sse": plane_tokens(streamed=streamed),
+               "handle": plane_tokens(chunks=chunks)}
+        wrong = {k: v for k, v in got.items() if v != want}
+        left = engine_stats(rt, "llm-engine")["kv_blocks_used"]
+        if wrong or left:
+            raise AssertionError(f"serve-plane {label}: {wrong} != {want}, "
+                                 f"{left} KV blocks left")
+        out[label] = {"run_s": run_s, "cold_start_s": cold_s}
+        log(f"serve-plane check {label} ok: llama-7b widths, 2 layers, f32, "
+            f"engine in a num_gpus=1 replica actor (cold start {cold_s:.2f} "
+            f"s, serve.run {run_s:.2f} s); {len(prompts)} requests over HTTP "
+            f"unary, over HTTP SSE and through the handle's generate_stream, "
+            f"{len(prompts)} client threads each: all = "
+            + ("the argmax rollout of models.forward" if label == "greedy"
+               else "a solo engine (temperature 0.8, top_k 50)")
+            + "; every KV block returned")
+        if label == "greedy":
+            out["replace"] = plane_replace(rt, port, bodies, rollout)
+        serve.delete("llm")
+        serve.delete("llm-engine")
+        del handle, replica
+    return out
+
+
+def plane_full(tm, gen, rt, serve, port, seed, in_process):
+    """17(b): llama-7b at full width and depth, bf16, 13(c)'s engine config,
+    in a GPU replica actor: 16 prompts from 16 client threads over HTTP SSE,
+    then through the handle's ``generate_stream``."""
+    from ray_tpu_torch.serve.api import _controller
+    from ray_tpu_torch.serve.llm import EngineConfig
+    from ray_tpu_torch.serve.llm import replicas as rp
+
+    gc_collect()
+    ec = dict(preset="llama-7b", param_seed=seed, max_slots=8, max_len=2048,
+              paged_kv=True, kv_block_size=16, prefill_chunk=512,
+              prompt_buckets=APP_BUCKETS, max_new_tokens=SERVE_NEW,
+              prefill_batch_size=4, prefill_batch_window_ms=5.0)
+    cfg = EngineConfig.from_dict(ec).gpt_config()
+    prompts = serve_prompts(seed, cfg.vocab_size)
+    handle, run_s, cold_s, replica, _ = plane_deploy(rt, serve, ec)
+    # One short request first, so that neither timed path pays the
+    # replica's first products (cuBLAS's plans, the allocator's pool).
+    handle.remote({"prompt": prompts[0][:128], "n": 2}).result(timeout=600)
+    bodies = [{"model": "llm", "prompt": p, "max_tokens": SERVE_NEW,
+               "seed": 0, "stream": True} for p in prompts]
+    streamed, http_wall = http_clients(port, bodies)
+    http_tokens = plane_tokens(streamed=streamed)
+    t0 = time.perf_counter()
+    chunks, handle_ttft = app_streams(handle, prompts, SERVE_NEW,
+                                      [0] * len(prompts))
+    handle_wall = time.perf_counter() - t0
+    handle_tokens = plane_tokens(chunks=chunks)
+    stats = rt.get(replica.stats.remote(), timeout=60)
+    ingress = rt.get(_controller().ingress_stats.remote(), timeout=60)
+    admitted = sum(s["admitted_total"] for s in ingress.values())
+    shed = sum(s["shed_total"] for s in ingress.values())
+    short = [i for i, t in enumerate(http_tokens + handle_tokens)
+             if len(t) != SERVE_NEW]
+    if short or stats["kv_blocks_used"] or not all(
+            0 <= x < cfg.vocab_size for t in http_tokens + handle_tokens
+            for x in t) or shed or admitted < len(prompts):
+        raise AssertionError(f"serve-plane full: requests {short} short of "
+                             f"{SERVE_NEW}, replica stats {stats}, ingress "
+                             f"{ingress}")
+    serve.delete("llm")
+    serve.delete("llm-engine")
+    del handle, replica
+    gc_collect()
+    # The replica's weights again, here: its first-token logits (chunked
+    # prefill) against models.forward, and each served first token against
+    # forward's argmax wherever that is clear of the runner-up by 2 atol.
+    cfg, master = rp._build_model(EngineConfig.from_dict(ec), device=CARD)
+    params = gen.serving_params(master, cfg, CARD)
+    del master
+    gc_collect()
+    max_err, firsts = check_first_logits(tm, gen, params, cfg, prompts,
+                                         SERVE_LOGIT_ATOL)
+    del params
+    gc_collect()
+    clear = [i for i, (_, margin) in enumerate(firsts)
+             if margin > 2 * SERVE_LOGIT_ATOL]
+    off = [i for i in clear if http_tokens[i][0] != firsts[i][0]
+           or handle_tokens[i][0] != firsts[i][0]]
+    if off:
+        raise AssertionError(f"serve-plane full: first tokens of {off} are "
+                             f"not models.forward's argmax {firsts}")
+    http_ttft = [first for _, _, first in streamed]
+    out = {
+        "run_s": run_s, "cold_start_s": cold_s,
+        "http_ttft_p50_ms": percentile(http_ttft, 50) * 1e3,
+        "http_ttft_p99_ms": percentile(http_ttft, 99) * 1e3,
+        "handle_ttft_p50_ms": percentile(handle_ttft, 50) * 1e3,
+        "handle_ttft_p99_ms": percentile(handle_ttft, 99) * 1e3,
+        "http_output_tokens_per_s": sum(map(len, http_tokens)) / http_wall,
+        "handle_output_tokens_per_s":
+            sum(map(len, handle_tokens)) / handle_wall,
+        "http_wall_s": http_wall, "handle_wall_s": handle_wall,
+        "replica_peak_gb": stats.get("device_memory_peak_bytes", 0) / 1e9,
+        "ingress_admitted": admitted, "ingress_shed": shed,
+        "http_handle_same_tokens": sum(a == b for a, b in
+                                       zip(http_tokens, handle_tokens)),
+        "first_logits_max_abs_err": max_err,
+        "first_tokens_checked": len(clear),
+    }
+    if in_process:
+        out["in_process"] = {k: in_process[k] for k in (
+            "ttft_p50_ms", "ttft_p99_ms", "output_tokens_per_s")}
+        beside = (f"; phase 13(c) in process in this call: TTFT p50 "
+                  f"{in_process['ttft_p50_ms']:.1f} ms p99 "
+                  f"{in_process['ttft_p99_ms']:.1f} ms, "
+                  f"{in_process['output_tokens_per_s']:.1f} tokens/s "
+                  f"(disaggregated)")
+    else:
+        beside = "; phase 13 not run in this call"
+    log(f"serve-plane full ok: llama-7b, bf16, combined app with its engine "
+        f"in a num_gpus=1 replica actor (13(c)'s engine config); replica "
+        f"cold start {cold_s:.2f} s (serve.run {run_s:.2f} s); "
+        f"{len(prompts)} prompts x {SERVE_NEW} from {len(prompts)} client "
+        f"threads: over HTTP SSE TTFT p50 {out['http_ttft_p50_ms']:.1f} ms "
+        f"p99 {out['http_ttft_p99_ms']:.1f} ms, "
+        f"{out['http_output_tokens_per_s']:.1f} output tokens/s; through the "
+        f"handle TTFT p50 {out['handle_ttft_p50_ms']:.1f} ms p99 "
+        f"{out['handle_ttft_p99_ms']:.1f} ms, "
+        f"{out['handle_output_tokens_per_s']:.1f} tokens/s; the same tokens "
+        f"on both paths for {out['http_handle_same_tokens']}/{len(prompts)} "
+        f"requests; every budget met, every token in the vocabulary, every "
+        f"KV block returned; first-token logits vs models.forward max |diff| "
+        f"{max_err:.4f} (atol {SERVE_LOGIT_ATOL}), the first token = "
+        f"forward's argmax on all {len(clear)} clear prompts; replica peak "
+        f"memory {out['replica_peak_gb']:.2f} GB (read in the actor); "
+        f"ingress admitted {admitted}, shed {shed}{beside}")
+    return out
+
+
+def serve_plane_phase(tm, gen, seed, in_process=None):
+    """Phase 17: the serve control plane on the port's own runtime."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    gc_collect()
+    rt.init(num_cpus=RUNTIME_CPUS, num_gpus=1, log_to_driver=False)
+    try:
+        from ray_tpu_torch import serve
+        from ray_tpu_torch.serve.api import _controller
+
+        if rt.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"serve-plane: {rt.cluster_resources()}")
+        serve.start(http_port=free_port())
+        ports = {}
+        deadline = time.perf_counter() + 60
+        while not ports and time.perf_counter() < deadline:
+            ports = rt.get(_controller().proxy_addresses.remote(), timeout=60)
+            time.sleep(0.1)
+        if not ports:
+            raise AssertionError("serve-plane: the ingress never came up")
+        port = next(iter(ports.values()))
+        out = {"check": plane_check(tm, gen, rt, serve, port)}
+        gc_collect()
+        out["full"] = plane_full(tm, gen, rt, serve, port, seed, in_process)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve-plane phase ok in {out['phase_s']:.1f} s")
+    log("serve-plane metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3395,7 +3806,7 @@ def main() -> int:
                          "decode step into chiprun_out/")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
-    ap.add_argument("--only", choices=["sharded", "runtime"],
+    ap.add_argument("--only", choices=["sharded", "runtime", "serve"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -3514,6 +3925,15 @@ def main() -> int:
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
+    if args.only == "serve":
+        serve_plane_phase(tm, gen, args.seed)
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     moe_train(tm, fa, os.path.join("chiprun_out",
                                    "profile_moe_train_step.txt")
               if args.profile else None)
@@ -3537,6 +3957,8 @@ def main() -> int:
     runtime = runtime_phase(tm, fa, run, bf16, args.seed,
                             phase12=rl_algo["ppo"],
                             in_process=serve_app["kv_frame"])
+    gc_collect()
+    serve_plane_phase(tm, gen, args.seed, in_process=serve_app["app"])
     for row in rows:
         row["runtime_launches"] = runtime["train"]["launches"][row["name"]]
         row["trainer_launches"] = gang["trainer"]["launches"][row["name"]]

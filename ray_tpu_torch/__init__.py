@@ -15,7 +15,9 @@ manager, with GPUs scheduled as whole devices where the reference has TPU
 chips (each GPU worker gets its ``CUDA_VISIBLE_DEVICES``). Its public calls
 are exported here, so the module itself serves as a runtime for the
 modules that take one (``runtime=ray_tpu_torch``); the in-process
-``runtime.LocalRuntime`` stays their default.
+``runtime.LocalRuntime`` stays their default. ``ray_tpu_torch.serve`` is
+its serve control plane (controller, replica actors, handles, an HTTP/SSE
+ingress), and so ``runtime.serve`` for the LLM tier.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise rather than drift to the CPU.
@@ -23,6 +25,13 @@ without a GPU they raise rather than drift to the CPU.
 
 from ray_tpu_torch.version import __version__  # noqa: F401
 from ray_tpu_torch import exceptions  # noqa: F401
+
+# Runtime lock-order witness (RAY_TPU_TORCH_LOCKDEP_ENABLED): it must
+# install BEFORE any ray_tpu_torch module creates its locks, so it rides
+# the very first import.
+from ray_tpu_torch._private import lockdep as _lockdep
+
+_lockdep.maybe_install()
 
 from ray_tpu_torch.api import (  # noqa: E402,F401
     init,

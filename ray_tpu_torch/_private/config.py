@@ -389,8 +389,51 @@ _d("trace_sample_rate", 1.0,
    "1.0 keeps everything (the default); task events themselves are "
    "never sampled out — only spans.")
 
-# --- serve fault tolerance (the LLM tier's; the serve control plane's and
-# the ingress's knobs come with those modules) ------------------------------
+# --- serve ingress (HTTP/SSE front door) ------------------------------------
+_d("serve_ingress_max_inflight", 256,
+   "Per-proxy concurrency budget: requests admitted past the front door "
+   "and not yet answered (streams count until their last SSE frame). "
+   "Arrivals beyond it wait in per-tenant queues served deficit-round-"
+   "robin. Size it to what one proxy's downstream replicas can hold "
+   "in flight; the watermark below bounds the waiting room.")
+_d("serve_ingress_queue_watermark", 128,
+   "Waiting-room high watermark: arrivals that would push the admission "
+   "queue past this are SHED immediately with 429 + Retry-After "
+   "(typed ServeOverloadedError) instead of building an unbounded "
+   "backlog in front of saturated replicas — the graceful-saturation "
+   "contract the open-loop bench measures.")
+_d("serve_ingress_queue_timeout_s", 10.0,
+   "Longest a request may wait in the admission queue before it is shed "
+   "with 503 (it was admitted to the waiting room but never won a "
+   "slot): bounds client-perceived queueing delay under sustained "
+   "overload.")
+_d("serve_ingress_executor_threads", 32,
+   "Headroom threads of the proxy's dedicated data-plane pool (the old "
+   "data path ran every request on the asyncio DEFAULT executor and "
+   "exhausted it under load). The pool is sized max_inflight + this: "
+   "admitted streams each hold one pump thread for their lifetime "
+   "(covered by the max_inflight share), and this margin keeps "
+   "short-lived calls — route resolution, stream opens, non-streaming "
+   "requests — from queueing behind a full house of streams.")
+_d("serve_ingress_tenant_header", "x-tenant",
+   "HTTP header naming the tenant for fair admission; absent means the "
+   "shared 'default' tenant.")
+_d("serve_ingress_tenant_rate", 0.0,
+   "Per-tenant token-bucket refill (requests/second) at the ingress; "
+   "0 disables rate limiting (fairness then comes only from "
+   "deficit-round-robin queue service).")
+_d("serve_ingress_tenant_burst", 16.0,
+   "Per-tenant token-bucket capacity (burst size) when "
+   "serve_ingress_tenant_rate is set.")
+_d("serve_ingress_request_timeout_s", 120.0,
+   "Bound on one non-streaming proxy->handle call (maps to 503, not a "
+   "parked proxy thread).")
+_d("serve_ingress_stream_item_timeout_s", 120.0,
+   "Bound on EACH item pull of a streaming (SSE) response; a wedged "
+   "replica generator surfaces as a terminated stream, not a "
+   "forever-open socket.")
+
+# --- serve fault tolerance -------------------------------------------------
 _d("serve_request_max_migrations", 3,
    "How many times one admitted request may be migrated to another "
    "replica after a replica death / engine failure / drain before it is "
@@ -399,6 +442,11 @@ _d("serve_request_max_migrations", 3,
    "delivered client-side and continue at the next token — never a "
    "duplicate, never a gap; unary calls are retried from scratch "
    "(deterministic per-request sampling keys make both bit-identical).")
+_d("serve_drain_timeout_s", 10.0,
+   "Rolling-restart drain budget: a draining replica stops admitting "
+   "new requests and gets this long to finish its in-flight work before "
+   "the controller kills it; stragglers hand off through the same "
+   "migration path as a crash (client-side resume, bit-identical).")
 _d("serve_kv_adopt_timeout_s", 60.0,
    "Bound on resolving a prefill->decode KV handoff in adopt_kv; "
    "expiry raises typed KVAdoptTimeoutError (dead prefill replica) so "
@@ -414,11 +462,21 @@ _d("serve_fault_inject", "",
    "(exercises the ActorDiedError migration path). Each spec fires "
    "once per process. Empty disables.")
 
+# --- correctness tooling ----------------------------------------------------
+_d("lockdep_enabled", False,
+   "Runtime lock-order witness (ray_tpu_torch._private.lockdep): wrap "
+   "every threading.Lock/RLock created by ray_tpu_torch code, record the "
+   "actual acquisition order per thread into a creation-site-keyed graph, "
+   "and capture the witness cycle the first time an acquisition closes "
+   "one (the interleaving that WOULD deadlock, caught on a run that "
+   "merely inverted order). Violations are recorded, not raised. "
+   "Installed at import; the GCS, node manager and workers inherit the "
+   "variable. Env: RAY_TPU_TORCH_LOCKDEP_ENABLED.")
+
 # --- modes of the reference that the port leaves out ----------------------
 # Setting one is refused at init(), not quietly ignored; ROADMAP.md queues
 # each for a later slice.
 UNPORTED = {
-    "lockdep_enabled": "the runtime lock-order witness (_private/lockdep.py)",
     "profiler_always_on": "the always-on sampling profiler",
     "submit_template_verify": "the spec-template byte-for-byte verify mode",
 }

@@ -24,9 +24,10 @@ flushes, object-directory updates, and scheduling proceed in parallel):
   rank 3  ``_kv_lock``     function store, KV, metrics table, task events,
                            pubsub subscriptions
 
-Lock discipline (in the reference, enforced by a static lock-order checker
-and a runtime witness; neither is ported): a thread holding a shard lock may only acquire a HIGHER
-rank shard lock (sched -> actor -> obj -> kv), never a lower one — all
+Lock discipline (witnessed at run time by ``_private/lockdep.py`` when
+``RAY_TPU_TORCH_LOCKDEP_ENABLED=1``): a thread holding a shard lock may
+only acquire a HIGHER rank shard lock (sched -> actor -> obj -> kv),
+never a lower one — all
 edges point rank-forward, so the acquisition graph cannot cycle. Handlers
 acquire their primary shard(s) up front in canonical order (``with
 self._sched_lock, self._obj_lock:``); helpers may nest forward. The few
@@ -53,10 +54,12 @@ and fulfilled by later events or the timer thread.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import logging
 import os
 import pickle
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -780,11 +783,8 @@ class GcsServer:
                 if entry is not None and entry.state == RESTARTING \
                         and entry.node_id is None:
                     # Node never rejoined: equivalent to node death.
-                    # raylint: disable-next=lock-order (actor→obj here
-                    # vs obj→actor in _h_task_done via _release_for's PG
-                    # branch: every path to either order holds
-                    # _sched_lock first, so the inversion is gated and
-                    # the two threads can never interleave)
+                    # (actor -> obj, forward; a PG task's completion takes
+                    # actor before obj too: _apply_task_done_records.)
                     if not self._schedule_actor(entry):
                         self._queued_tasks.append(_ActorCreationShim(entry))
                     self._persist_actor(aid)
@@ -1509,16 +1509,37 @@ class GcsServer:
         elif entry is not None:
             self._unpin_task_args(entry[0])
 
+    def _releases_bundle_locked(self, records) -> bool:
+        """Caller holds _sched_lock: True if completing one of
+        ``records`` frees a placement-group bundle. ``_release_for``
+        then takes _actor_lock, which ranks below _obj_lock, so the
+        caller must take it before _obj_lock (a PG task's completion
+        under _obj_lock alone closed obj -> actor -> obj against
+        ``_h_register_node``'s actor -> obj)."""
+        for r in records:
+            entry = self._running_tasks.get(r["task_id"])
+            if entry is not None and \
+                    entry[0].placement_group_id is not None:
+                return True
+        return False
+
     def _h_task_done(self, conn: protocol.Conn, p, msg_id):
         """Node manager reports task completion (success or failure)."""
+        self._apply_task_done_records([p], p["node_id"])
+
+    def _apply_task_done_records(self, records, node_id: str) -> None:
         new_oids: Set[bytes] = set()
         spills: list = []
         with self._sched_lock:
-            with self._obj_lock:
-                self._apply_task_done_locked(p, p["node_id"], new_oids,
-                                             spills)
-                if new_oids:
-                    self._fulfill_obj_waiters_many(new_oids)
+            with contextlib.ExitStack() as held:
+                if self._releases_bundle_locked(records):
+                    held.enter_context(self._actor_lock)
+                with self._obj_lock:
+                    for r in records:
+                        self._apply_task_done_locked(r, node_id, new_oids,
+                                                     spills)
+                    if new_oids:
+                        self._fulfill_obj_waiters_many(new_oids)
             self._try_schedule()
         self._send_inline_spills(spills)
 
@@ -1544,17 +1565,7 @@ class GcsServer:
             _inline_metrics()[2].observe(float(len(records)))
         except Exception:
             pass
-        new_oids: Set[bytes] = set()
-        spills: list = []
-        with self._sched_lock:
-            with self._obj_lock:
-                for r in records:
-                    self._apply_task_done_locked(r, node_id, new_oids,
-                                                 spills)
-                if new_oids:
-                    self._fulfill_obj_waiters_many(new_oids)
-            self._try_schedule()
-        self._send_inline_spills(spills)
+        self._apply_task_done_records(records, node_id)
 
     # ------------------------------------------------- worker leases
     # (direct task transport, reference: direct_task_transport.h:75 —
@@ -3169,6 +3180,11 @@ def main(argv=None) -> int:
 
     if args.system_config:
         _cfg.apply_system_config(args.system_config)
+    # Lockdep must wrap the shard locks at creation: install (knob- or
+    # env-driven) BEFORE the server is constructed.
+    from ray_tpu_torch._private import lockdep
+
+    lockdep.maybe_install()
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -3200,6 +3216,12 @@ def main(argv=None) -> int:
         os.unlink(args.bootstrap_file)
     except OSError:
         pass
+    if lockdep.installed():
+        found = lockdep.take_violations()
+        if found:
+            for v in found:
+                print(f"gcs lockdep: {v}", file=sys.stderr)
+            return 3
     return 0
 
 

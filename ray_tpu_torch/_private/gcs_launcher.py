@@ -92,6 +92,11 @@ class GcsProcess:
             return "<no log>"
 
     def _wait_bootstrap(self, timeout: float):
+        from ray_tpu_torch._private import lockdep
+
+        # Bootstrap blocks on the child: witness (lockdep) that the
+        # calling thread holds no control-plane lock here.
+        lockdep.note_blocking_region("gcs bootstrap wait")
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             if os.path.exists(self.bootstrap_path):
@@ -122,6 +127,9 @@ class GcsProcess:
     def terminate(self, timeout: float = 10.0) -> Optional[int]:
         """Graceful stop: SIGTERM → the child drains (GcsServer.close,
         storage flush) and exits; escalate to SIGKILL past ``timeout``."""
+        from ray_tpu_torch._private import lockdep
+
+        lockdep.note_blocking_region("gcs terminate wait")
         if self.proc.poll() is None:
             try:
                 self.proc.send_signal(signal.SIGTERM)

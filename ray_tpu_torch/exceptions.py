@@ -164,6 +164,22 @@ class EngineFailedError(RayTpuError):
                 {"descriptor": self.descriptor, "reason": self.reason})
 
 
+class ReplicaDrainingError(RayTpuError):
+    """The replica is draining (rolling restart / scale-down) and no
+    longer admits new requests or streams. The caller should re-pick a
+    healthy replica and resubmit — the serve handle does this
+    transparently."""
+
+    def __init__(self, message: str = "replica is draining", *,
+                 replica_id: str = ""):
+        self.replica_id = replica_id
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",),
+                {"replica_id": self.replica_id})
+
+
 class RequestMigrationExhaustedError(ServeOverloadedError):
     """A request was migrated across replica deaths
     ``serve_request_max_migrations`` times and still could not complete.

@@ -21,13 +21,13 @@ def test_every_knob_is_read():
 
 
 def test_unported_modes_are_refused_at_init(monkeypatch):
-    """The reference's lock-order witness, always-on profiler and
-    template verify mode are not ported: setting one fails at ``init()``
-    instead of being ignored."""
+    """The reference's always-on profiler and template verify mode are
+    not ported: setting one fails at ``init()`` instead of being ignored.
+    (The lock-order witness is ported: ``test_torch_lockdep``.)"""
     import ray_tpu_torch
     from ray_tpu_torch._private import config as cfg
 
-    assert set(cfg.UNPORTED) == {"lockdep_enabled", "profiler_always_on",
+    assert set(cfg.UNPORTED) == {"profiler_always_on",
                                  "submit_template_verify"}
     for name in cfg.UNPORTED:
         var = "RAY_TPU_TORCH_" + name.upper()

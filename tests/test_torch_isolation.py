@@ -33,7 +33,7 @@ SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "optax", "ray_tpu", "cloudpickle",
-                   "msgpack")
+                   "msgpack", "aiohttp")
 
 
 def _imports(path: pathlib.Path):
@@ -59,7 +59,9 @@ def test_sources_found():
             "remote_function.py", "node_manager.py", "gcs.py",
             "worker.py", "worker_main.py", "worker_zygote.py",
             "plasma.py", "pickler.py", "serialization.py", "lease.py",
-            "protocol.py", "placement_group.py"} <= names
+            "protocol.py", "placement_group.py", "lockdep.py",
+            "pubsub.py", "controller.py", "handle.py", "replica.py",
+            "admission.py", "server.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -86,7 +88,11 @@ def test_importing_every_module_loads_none_of_them():
             "ray_tpu_torch._private.gcs",
             "ray_tpu_torch._private.worker_main",
             "ray_tpu_torch._private.worker_zygote",
-            "ray_tpu_torch.object_store.plasma"} \
+            "ray_tpu_torch.object_store.plasma",
+            "ray_tpu_torch._private.lockdep",
+            "ray_tpu_torch.experimental.pubsub",
+            "ray_tpu_torch.serve.controller",
+            "ray_tpu_torch.serve.ingress.server"} \
         <= {m.removesuffix(".__init__") for m in mods}
     code = ("import sys\nbefore = set(sys.modules)\n" +
             "".join(f"import {m}\n" for m in mods) +
@@ -107,10 +113,11 @@ def test_scan_catches_forbidden_imports(tmp_path):
     src.write_text("import jax.numpy as jnp\nfrom ray_tpu.models import x\n"
                    "import ray_tpu\nfrom ray_tpu_torch import models\n"
                    "def f():\n    from jax import lax\n    import optax\n"
-                   "    import cloudpickle\n    import msgpack\n")
+                   "    import cloudpickle\n    import msgpack\n"
+                   "    from aiohttp import web\n")
     found = [mod for _, mod in _imports(src) if _forbidden(mod)]
     assert found == ["jax.numpy", "ray_tpu.models", "ray_tpu", "jax", "optax",
-                     "cloudpickle", "msgpack"]
+                     "cloudpickle", "msgpack", "aiohttp"]
 
 
 def test_engine_and_build_model_raise_without_cuda(monkeypatch):

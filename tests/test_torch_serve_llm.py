@@ -3,9 +3,10 @@ KV handoff) on the runtime seam, torch on the CPU.
 
 - Twins of tests/test_serve_llm.py's same-process handoff and app tests, on
   the ``ray_tpu`` runtime (its worker processes import ``ray_tpu_torch``
-  like any user module; ``device="cpu"``) and on the port's in-process
-  ``LocalRuntime``. The oracle is the port's ``generate`` on the engine's
-  model.
+  like any user module; ``device="cpu"``), on the port's in-process
+  ``LocalRuntime``, and on the port's own runtime with its own serve
+  control plane (``ray_tpu_torch.serve``: controller, replica actors,
+  handles). The oracle is the port's ``generate`` on the engine's model.
 - The replicas in process on params converted from the JAX package's
   engine model give the tokens of JAX's ``prefill_slot`` + ``adopt_slot`` +
   ``decode_step`` run in order, exactly, in f32; the prefill batcher gives
@@ -39,6 +40,7 @@ from ray_tpu_torch.serve.llm import (
     DecodeReplica, EngineConfig, PrefillReplica, build_llm_app, replicas,
 )
 from ray_tpu_torch.serve.llm.kv_transfer import adopt_kv, publish_kv
+from torch_runtimes import ports_runtime
 
 ENGINE_CONFIG = dict(
     preset="tiny", model_overrides={"dtype": "float32"},
@@ -46,6 +48,7 @@ ENGINE_CONFIG = dict(
 
 PROMPT = [5, 9, 2, 11, 3]
 N = 8
+_CLUSTER_KW = dict(num_cpus=6, object_store_memory=256 * 1024 * 1024)
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +60,7 @@ def serve_cluster():
     torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OMP_NUM_THREADS", "1")
-        ctx = ray_tpu.init(num_cpus=6,
-                           object_store_memory=256 * 1024 * 1024)
+        ctx = ray_tpu.init(**_CLUSTER_KW)
     serve.start(http_port=None)
     yield ctx
     serve.shutdown()
@@ -76,12 +78,35 @@ def restore_hook():
     serialization.register_reducer_hook(before)
 
 
-@pytest.fixture(params=["ray_tpu", "local"])
-def runtime(request):
-    if request.param == "ray_tpu":
+@pytest.fixture(scope="module", params=["ray_tpu", "local", "ray_tpu_torch"])
+def runtime_kind(request):
+    """Module-scoped, so pytest runs each runtime's tests together: the
+    port's own runtime comes up once, with the ``ray_tpu`` cluster down
+    (``tests/torch_runtimes.py``), and its serve is the port's
+    ``ray_tpu_torch.serve``."""
+    if request.param != "ray_tpu_torch":
+        yield request.param
+        return
+    with ports_runtime(restore=_CLUSTER_KW, num_cpus=6,
+                       object_store_memory=_CLUSTER_KW[
+                           "object_store_memory"]) as rt:
+        import ray_tpu_torch.serve as tserve
+
+        tserve.start(http_port=None)
+        try:
+            yield rt
+        finally:
+            tserve.shutdown()
+
+
+@pytest.fixture
+def runtime(request, runtime_kind):
+    if runtime_kind == "ray_tpu":
         request.getfixturevalue("serve_cluster")
         return ray_tpu
-    return LocalRuntime()
+    if runtime_kind == "local":
+        return LocalRuntime()
+    return runtime_kind
 
 
 def _model():
