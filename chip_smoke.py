@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only sharded  # phases 1-5 and 15 only
     python3 chip_smoke.py --only runtime  # phases 1-5 and 16 only
     python3 chip_smoke.py --only serve    # phases 1-5 and 17 only
+    python3 chip_smoke.py --only tune     # phases 1-5 and 18 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -204,6 +205,35 @@ Phases, each printed on its own line, each fatal when it fails:
    GCS's ``actor_state`` push, the replacement waits for the freed GPU,
    and the next requests over HTTP give (a)'s greedy tokens; prints the
    time from the kill to the replacement's first answer.
+
+18. tune: the autoscaler, ``ray_tpu_torch.data`` and ``ray_tpu_torch.tune``
+   on the port's own runtime. ``cluster_launcher.launch_cluster`` of a plain
+   dict starts a head of 4 CPUs and no GPU, and a ``local_process`` provider
+   with one node type, ``gpu_host`` ({CPU 2, GPU 1}, 0 to 1 workers, idle
+   timeout 5 s, a reconcile every second); this process joins with
+   ``init(address=...)``. (b) Phase 4's seeded tokens become a dataset:
+   ``from_numpy``, one row per sequence, repeated for 5 steps,
+   ``map_batches`` cutting inputs and targets; a ``random_shuffle(seed=0)``
+   of it is a permutation of its rows. (a) A ``num_gpus=1`` task makes the
+   autoscaler launch exactly one ``gpu_host`` node, a ``node_daemon``
+   process of its own: the task runs there with
+   ``CUDA_VISIBLE_DEVICES=0`` and holds K1-K3 at [8, 1024, 12, 64] bf16
+   causal to their plain versions with phase 2's errors, bit for bit; prints
+   the time from the demand to the node's registration and from submit to
+   the task's first line. (c) ``Tuner`` over a ``TorchDistTrainer``
+   (``runtime=ray_tpu_torch``, one NCCL rank, the dataset as ``"train"``)
+   sweeps lr over {3e-4, 1e-3} with ``PlacementGroupFactory([{CPU 1},
+   {CPU 1, GPU 1}])``: each trial runs phase 4's gpt2-125m step (2 warm-up,
+   3 timed) on the batches its rank reads from
+   ``get_dataset_shard("train")``, each equal to phase 4's batch; both
+   trials on the autoscaled node, one after the other; the lr 3e-4 trial's
+   losses are phase 4's first five within 16b's tolerance and the lr 1e-3
+   trial's first loss is phase 4's; 24/12/12 launches a step in each rank,
+   none here; ``get_best_result`` is the trial of the lower last loss.
+   Prints each trial's cold start, median step ms beside phase 4's and the
+   rank's peak memory. (d) The idle node goes within 5 + 15 s of the last
+   trial's end: ``cluster_resources()`` has no GPU left and only the head
+   is alive; prints that time.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -503,10 +533,10 @@ def train_batch(vocab: int):
     return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
 
 
-def new_state(tm, cfg):
-    """Fresh params from seed 0 on the card and AdamW(3e-4, wd 0.1), as
-    ``bench.py::measure``."""
-    opt = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.1)
+def new_state(tm, cfg, lr=3e-4):
+    """Fresh params from seed 0 on the card and AdamW(lr, wd 0.1), as
+    ``bench.py::measure`` (lr 3e-4)."""
+    opt = functools.partial(torch.optim.AdamW, lr=lr, weight_decay=0.1)
     return tm.make_train_state(
         cfg, opt, generator=torch.Generator(device="cuda").manual_seed(0),
         device="cuda")
@@ -3797,6 +3827,352 @@ def serve_plane_phase(tm, gen, seed, in_process=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the autoscaler, ray_tpu_torch.data and ray_tpu_torch.tune: a
+# two-trial sweep of the main path's step on an autoscaled GPU node.
+
+TUNE_LRS = (3e-4, 1e-3)
+TUNE_STEPS = 5                 # 2 warm-up, 3 timed
+TUNE_IDLE_S = 5.0              # the node type's idle timeout
+TUNE_DOWN_SLACK_S = 15.0       # the scale-down gate: idle timeout + this
+TUNE_UP_TIMEOUT_S = 300.0
+
+
+def tune_gpu_probe(t_submit, tol):
+    """18a, on the autoscaled node: 16a's probe, and the node it ran on."""
+    import ray_tpu_torch as rt
+
+    return dict(runtime_gpu_probe(t_submit, tol),
+                node=rt.get_runtime_context().get_node_id())
+
+
+def tune_loop(config):
+    """18c: a trial's rank. Phase 4's gpt2-125m step (``make_train_step``,
+    AdamW(lr, wd 0.1), seed 0) on each batch the rank reads from its
+    dataset shard; each report carries the loss, the step's seconds,
+    whether the batch is phase 4's, the rank's flash launches so far
+    (counted here), its GPU, node and peak memory."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t_start = time.time()
+    dev = rt_train.get_device()
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    state = new_state(tm, cfg, lr=config["lr"])
+    step = tm.make_train_step(cfg)
+    want = train_batch(cfg.vocab_size)
+    node = rt.get_runtime_context().get_node_id()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    shard = rt_train.get_dataset_shard("train")
+    for i, b in enumerate(shard.iter_batches(batch_size=B,
+                                             batch_format="numpy")):
+        batch = {k: torch.tensor(v, device=dev) for k, v in b.items()}
+        same = set(batch) == set(want) and all(
+            torch.equal(batch[k], want[k]) for k in want)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()          # waits for the step
+        dt = time.perf_counter() - t0
+        rt_train.report({
+            "step": i, "loss": loss, "s": dt, "batch_equal": same,
+            "launches": {k.symbol.removeprefix("rtt_"): k.launches
+                         for k in fa.KERNELS},
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(), "node": node,
+            "peak": torch.cuda.max_memory_allocated(), "t": time.time(),
+            "t_start": t_start})
+
+
+def tune_dataset(rd, vocab):
+    """18b: phase 4's seeded tokens, one row per sequence, repeated for
+    TUNE_STEPS steps, cut into inputs and targets. The shuffled copy has
+    2 blocks: its 2 mergers and 2 map tasks fit the head's 4 CPUs, so its
+    demand launches no node."""
+    toks = np.random.default_rng(0).integers(0, vocab, (B, L + 1))
+    rows = np.tile(toks, (TUNE_STEPS, 1))
+    ds = rd.from_numpy(rows).map_batches(
+        lambda b: {"inputs": b["data"][:, :-1], "targets": b["data"][:, 1:]})
+    shuffled = sorted(
+        r["data"].tobytes() for r in rd.from_numpy(
+            rows, parallelism=2).random_shuffle(seed=0).take_all())
+    if shuffled != sorted(r.tobytes() for r in rows):
+        raise AssertionError("tune-data: the shuffled rows are not a "
+                             "permutation of the rows")
+    return ds
+
+
+class NodeLog:
+    """The cluster's nodes as the GCS sees them, sampled every 0.25 s on a
+    thread, and the autoscaler's reconcile summaries; written to
+    ``chiprun_out/tune_nodes.jsonl``."""
+
+    def __init__(self, rt, autoscaler):
+        import threading
+
+        self.rows, self._stop = [], threading.Event()
+        once = autoscaler.run_once
+
+        def logged():
+            out = once()
+            self.rows.append({"t": time.time(), "autoscaler": out})
+            return out
+
+        autoscaler.run_once = logged
+
+        def sample():
+            while not self._stop.wait(0.25):
+                try:
+                    self.rows.append({"t": time.time(), "nodes": [
+                        {k: n[k] for k in ("NodeID", "Alive", "Resources",
+                                           "Available", "LocallyHeld")}
+                        for n in rt.nodes()]})
+                except Exception as e:
+                    self.rows.append({"t": time.time(), "error": repr(e)})
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+
+    def close(self, path):
+        self._stop.set()
+        self._thread.join(5)
+        with open(path, "w") as f:
+            for row in self.rows:
+                f.write(json.dumps(row) + "\n")
+
+
+def tune_phase(tm, fa, run, tol, errors):
+    """Phase 18: the sweep on an autoscaled GPU node."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.autoscaler.cluster_launcher import launch_cluster
+
+    t0 = time.perf_counter()
+    os.makedirs("chiprun_out", exist_ok=True)
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    # 16b's tolerance: 1e-6, or phase 4's own spread in this call.
+    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
+                      train_batch(cfg.vocab_size), "tune phase-4 again",
+                      cfg.n_layers)
+    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
+    loss_tol = max(GANG_LOSS_ATOL, spread)
+    del again
+    gc_collect()
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    launched = launch_cluster({
+        "max_workers": 1, "idle_timeout_s": TUNE_IDLE_S,
+        "update_interval_s": 1.0,
+        "provider": {"type": "local_process"},
+        "head_node_type": {"CPU": RUNTIME_CPUS, "GPU": 0},
+        "available_node_types": {"gpu_host": {
+            "resources": {"CPU": 2, "GPU": 1},
+            "min_workers": 0, "max_workers": 1}}})
+    out = {}
+    nlog = None
+    try:
+        rt.init(address=launched.address, log_to_driver=False)
+        nlog = NodeLog(rt, launched.autoscaler)
+        head = rt.get_runtime_context().get_node_id()
+        if rt.cluster_resources().get("GPU", 0) or \
+                launched.provider.non_terminated_nodes():
+            raise AssertionError(f"tune: the head starts with "
+                                 f"{rt.cluster_resources()}")
+
+        # (b) the dataset, on the head's CPUs.
+        tb = time.perf_counter()
+        ds = tune_dataset(rd, cfg.vocab_size)
+        if launched.provider.non_terminated_nodes():
+            raise AssertionError("tune-data: the dataset's demand launched "
+                                 "a node")
+        log(f"tune-data ok: from_numpy of phase 4's tokens [{B}, {L + 1}] "
+            f"x {TUNE_STEPS} steps ({ds.num_blocks()} blocks), map_batches "
+            f"cutting inputs and targets; random_shuffle(seed=0) a "
+            f"permutation of the rows; {time.perf_counter() - tb:.2f} s")
+
+        # (a) autoscale up: a GPU task's demand launches the node.
+        probe = rt.remote(tune_gpu_probe).options(num_gpus=1)
+        t_submit = time.time()
+        ref = probe.remote(t_submit, tol)
+        t_reg = None
+        while t_reg is None and time.time() - t_submit < TUNE_UP_TIMEOUT_S:
+            if any(n["Alive"] and n["NodeID"] != head for n in rt.nodes()):
+                t_reg = time.time()
+            else:
+                time.sleep(0.05)
+        p = rt.get(ref, timeout=TUNE_UP_TIMEOUT_S)
+        first_ms = (time.time() - t_submit) * 1e3
+        gpu_nodes = [n["NodeID"] for n in rt.nodes() if n["NodeID"] != head]
+        provider_nodes = launched.provider.non_terminated_nodes()
+        if t_reg is None or len(gpu_nodes) != 1 or \
+                len(provider_nodes) != 1 or p["node"] != gpu_nodes[0]:
+            raise AssertionError(f"tune-up: nodes {rt.nodes()}, provider "
+                                 f"{provider_nodes}, task on {p['node']}")
+        if p["cuda_visible_devices"] != "0" or p["device_count"] != 1 or \
+                p["errors"] != errors or p["launches"] != {
+                    k: 1 for k in want}:
+            raise AssertionError(f"tune-up: GPU task {p} (phase 2's errors "
+                                 f"{errors})")
+        out["up"] = {"demand_to_registration_ms": (t_reg - t_submit) * 1e3,
+                     "submit_to_first_line_ms": p["spawn_ms"],
+                     "first_result_ms": first_ms,
+                     "torch_import_ms": p["torch_import_ms"],
+                     "first_cuda_ms": p["first_cuda_ms"],
+                     "errors": p["errors"]}
+        log(f"tune-up ok: the num_gpus=1 task's demand launched one "
+            f"gpu_host node ({provider_nodes[0]}, a node_daemon process; "
+            f"GCS node {gpu_nodes[0][:12]}); the task ran there (not on the "
+            f"head {head[:12]}) with CUDA_VISIBLE_DEVICES="
+            f"{p['cuda_visible_devices']}, K1-K3 at [{B}, {L}, {H}, {D}] "
+            f"bf16 causal against their plain versions: max |diff| "
+            f"{p['errors']} = phase 2's; demand to registration "
+            f"{(t_reg - t_submit) * 1e3:.0f} ms, submit to the task's first "
+            f"line {p['spawn_ms']:.0f} ms, first result {first_ms:.0f} ms; "
+            f"card: {gpu_line()}")
+
+        # (c) the sweep.
+        with tempfile.TemporaryDirectory(
+                dir=os.path.abspath("chiprun_out")) as storage:
+            trainer = rt_train.TorchDistTrainer(
+                tune_loop,
+                scaling_config=rt_train.ScalingConfig(num_workers=1,
+                                                      use_gpu=True),
+                run_config=rt_train.RunConfig(name="tune-gang",
+                                              storage_path=storage),
+                datasets={"train": ds}, backend="torch_dist", runtime=rt)
+            fa.reset_launches()
+            t_fit = time.time()
+            grid = tune.Tuner(
+                trainer,
+                param_space={"train_loop_config": {
+                    "lr": tune.grid_search(list(TUNE_LRS))}},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min",
+                    resources_per_trial=tune.PlacementGroupFactory(
+                        [{"CPU": 1}, {"CPU": 1, "GPU": 1}])),
+                run_config=rt_train.RunConfig(name="tune",
+                                              storage_path=storage)).fit()
+            fit_s = time.time() - t_fit
+        here = {k.symbol: k.launches for k in fa.KERNELS}
+        if any(here.values()):
+            raise AssertionError(f"tune: the driver launched {here}")
+        if len(grid) != 2 or grid.errors:
+            raise AssertionError(f"tune: {len(grid)} results, errors "
+                                 f"{grid.errors}")
+        trials = []
+        for r, lr in zip(grid, TUNE_LRS):
+            hist = r.metrics_history
+            last = hist[-1]
+            if [m["step"] for m in hist] != list(range(TUNE_STEPS)) or \
+                    not all(m["batch_equal"] for m in hist):
+                raise AssertionError(f"tune lr {lr}: steps "
+                                     f"{[m['step'] for m in hist]}, phase "
+                                     f"4's batch {[m['batch_equal'] for m in hist]}")
+            if {m["node"] for m in hist} != {gpu_nodes[0]} or \
+                    last["cuda_visible_devices"] != "0" or \
+                    last["device_count"] != 1:
+                raise AssertionError(f"tune lr {lr}: rank on "
+                                     f"{ {m['node'] for m in hist} } with "
+                                     f"{last['cuda_visible_devices']}")
+            for name, per_step in want.items():
+                if last["launches"][name] != per_step * TUNE_STEPS:
+                    raise AssertionError(
+                        f"tune lr {lr}: {name} launched "
+                        f"{last['launches'][name]} times in {TUNE_STEPS} "
+                        f"steps in the rank")
+            losses = [m["loss"] for m in hist]
+            trials.append({
+                "lr": lr, "losses": losses,
+                "cold_start_s": hist[0]["t"] - t_fit if not trials else
+                hist[0]["t"] - trials[-1]["end"],
+                "rank_start_to_first_report_s": hist[0]["t"] -
+                hist[0]["t_start"],
+                "start": hist[0]["t_start"], "end": last["t"],
+                "step_ms": statistics.median(
+                    m["s"] for m in hist[WARMUP_STEPS:]) * 1e3,
+                "all_step_ms": [m["s"] * 1e3 for m in hist],
+                "peak_gb": max(m["peak"] for m in hist) / 1e9,
+                "launches_per_step": {k: v // TUNE_STEPS for k, v in
+                                      last["launches"].items()}})
+        a, b_ = trials
+        if not a["end"] <= b_["start"]:
+            raise AssertionError(f"tune: the trials overlapped {trials}")
+        err = max(abs(x - y) for x, y in zip(a["losses"], run.losses))
+        first_err = abs(b_["losses"][0] - run.losses[0])
+        if err > loss_tol or first_err > loss_tol:
+            raise AssertionError(
+                f"tune: lr 3e-4 losses {a['losses']} vs phase 4's "
+                f"{run.losses[:TUNE_STEPS]} (max |diff| {err}); lr 1e-3 "
+                f"first loss {b_['losses'][0]} (|diff| {first_err}); tol "
+                f"{loss_tol}")
+        best = grid.get_best_result("loss", "min")
+        lower = min(trials, key=lambda x: x["losses"][-1])
+        if best.metrics["loss"] != lower["losses"][-1]:
+            raise AssertionError(f"tune: best {best.metrics} is not the "
+                                 f"lr {lower['lr']} trial")
+        out["trials"] = trials
+        out.update(loss_err=err, first_loss_err=first_err, loss_tol=loss_tol,
+                   fit_s=fit_s, best_lr=lower["lr"],
+                   phase4_step_ms=run.step_ms)
+        for x in trials:
+            log(f"tune trial lr {x['lr']:g} ok: {TUNE_STEPS} steps of "
+                f"gpt2-125m batch {B} seq {L} on the autoscaled node, "
+                f"CUDA_VISIBLE_DEVICES=0, losses "
+                f"{[round(v, 6) for v in x['losses']]}; launches a step in "
+                f"the rank {x['launches_per_step']}; cold start "
+                f"{x['cold_start_s']:.1f} s (from "
+                f"{'fit()' if x is a else 'the first trial end'} to the "
+                f"first report; the rank's own start to it "
+                f"{x['rank_start_to_first_report_s']:.1f} s), step_ms "
+                f"{x['step_ms']:.2f} (median of {TUNE_STEPS - WARMUP_STEPS}"
+                f"; phase 4 {run.step_ms:.2f}), the rank's peak memory "
+                f"{x['peak_gb']:.2f} GB")
+        log(f"tune ok: 2 trials, no errors, one after the other on node "
+            f"{gpu_nodes[0][:12]}; lr 3e-4 losses = phase 4's first "
+            f"{TUNE_STEPS} within {err:.3e}, lr 1e-3 first loss within "
+            f"{first_err:.3e} (tol {loss_tol:.1e}); best: lr "
+            f"{lower['lr']:g}; none launched here; fit {fit_s:.1f} s; card: "
+            f"{gpu_line()}")
+
+        # (d) scale down.
+        t_end = b_["end"]
+        t_gone = None
+        while time.time() - t_end < TUNE_IDLE_S + TUNE_DOWN_SLACK_S:
+            alive = [n["NodeID"] for n in rt.nodes() if n["Alive"]]
+            if alive == [head] and not rt.cluster_resources().get("GPU", 0) \
+                    and not launched.provider.non_terminated_nodes():
+                t_gone = time.time()
+                break
+            time.sleep(0.1)
+        if t_gone is None:
+            raise AssertionError(
+                f"tune-down: after {TUNE_IDLE_S + TUNE_DOWN_SLACK_S:.0f} s "
+                f"nodes {rt.nodes()}, resources {rt.cluster_resources()}")
+        if len([n for n in rt.nodes() if n["NodeID"] != head]) != 1:
+            raise AssertionError(f"tune: more than one node launched "
+                                 f"{rt.nodes()}")
+        out["down_s"] = t_gone - t_end
+        log(f"tune-down ok: the idle gpu_host node terminated "
+            f"{t_gone - t_end:.1f} s after the last trial's end (idle "
+            f"timeout {TUNE_IDLE_S:.0f} s); GPUs 0, only the head alive; one"
+            f" node launched in the phase")
+    finally:
+        try:
+            if nlog is not None:
+                nlog.close(os.path.join("chiprun_out", "tune_nodes.jsonl"))
+            rt.shutdown()
+        finally:
+            launched.shutdown()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"tune phase ok in {out['phase_s']:.1f} s")
+    log("tune metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3806,7 +4182,7 @@ def main() -> int:
                          "decode step into chiprun_out/")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
-    ap.add_argument("--only", choices=["sharded", "runtime", "serve"],
+    ap.add_argument("--only", choices=["sharded", "runtime", "serve", "tune"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -3922,6 +4298,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "tune":
+        tuned = tune_phase(tm, fa, run, bf16, errors)
+        for row in rows:
+            row["tune_launches"] = [x["launches_per_step"][row["name"]]
+                                    for x in tuned["trials"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
@@ -3959,7 +4347,11 @@ def main() -> int:
                             in_process=serve_app["kv_frame"])
     gc_collect()
     serve_plane_phase(tm, gen, args.seed, in_process=serve_app["app"])
+    gc_collect()
+    tuned = tune_phase(tm, fa, run, bf16, errors)
     for row in rows:
+        row["tune_launches"] = [x["launches_per_step"][row["name"]]
+                                for x in tuned["trials"]]
         row["runtime_launches"] = runtime["train"]["launches"][row["name"]]
         row["trainer_launches"] = gang["trainer"]["launches"][row["name"]]
         row["sharded_launches"] = {

@@ -301,6 +301,10 @@ class GcsServer:
         # placement groups
         self._pgs: Dict[bytes, PgEntry] = {}
         self._named_pgs: Dict[str, bytes] = {}
+        # Groups made while their resources were taken, retried whenever
+        # scheduling runs (_try_schedule), in the order they were made.
+        self._pending_pgs: Dict[bytes, PgEntry] = {}
+        self._placing_pgs = False
 
         # Inline-object table (inline_objects.py): the cluster-visible
         # copy of in-band small returns, listed in the directory under
@@ -1284,6 +1288,17 @@ class GcsServer:
         """
         if not self._nodes:
             return
+        if self._pending_pgs and not self._placing_pgs:
+            # Capacity that came back (a group removed, an actor gone,
+            # leases returned) may now fit a group that could not place
+            # when it was made: retry those before queued tasks take it.
+            # The reference retries them only when a node registers.
+            self._placing_pgs = True
+            try:
+                with self._actor_lock:
+                    self._try_schedule_pgs()
+            finally:
+                self._placing_pgs = False
         stuck_demands: List[Dict[str, float]] = []
         for key, _q in self._queued_tasks.buckets():
             while True:
@@ -2443,7 +2458,8 @@ class GcsServer:
                 self._named_pgs[spec.name] = spec.pg_id.binary()
             entry = PgEntry(spec=spec)
             self._pgs[spec.pg_id.binary()] = entry
-            self._try_place_pg(entry)
+            if not self._try_place_pg(entry):
+                self._pending_pgs[spec.pg_id.binary()] = entry
             conn.reply(msg_id, {"ok": True})
 
     def _try_place_pg(self, entry: PgEntry) -> bool:
@@ -2549,6 +2565,7 @@ class GcsServer:
             self._nodes[nid].available.acquire(b.resources)
             entry.bundle_available[b.index] = ResourceSet(b.resources)
         entry.state = "CREATED"
+        self._pending_pgs.pop(spec.pg_id.binary(), None)
         waiters, entry.waiters = entry.waiters, []
         for conn, msg_id in waiters:
             try:
@@ -2560,7 +2577,7 @@ class GcsServer:
 
     def _try_schedule_pgs(self):
         # Caller holds _sched_lock + _actor_lock.
-        for entry in self._pgs.values():
+        for entry in list(self._pending_pgs.values()):
             if entry.state == "PENDING":
                 self._try_place_pg(entry)
 
@@ -2589,6 +2606,19 @@ class GcsServer:
                 entry.state = "REMOVED"
                 if entry.spec.name:
                     self._named_pgs.pop(entry.spec.name, None)
+            elif entry is not None and entry.state == "PENDING":
+                # Never placed: it must not place later. Its waiters learn
+                # it is gone.
+                entry.state = "REMOVED"
+                self._pending_pgs.pop(p["pg_id"], None)
+                if entry.spec.name:
+                    self._named_pgs.pop(entry.spec.name, None)
+                waiters, entry.waiters = entry.waiters, []
+                for wconn, wid in waiters:
+                    try:
+                        wconn.reply_error(wid, "placement group removed")
+                    except Exception:
+                        pass
             self._try_schedule()
         conn.reply(msg_id, True)
 

@@ -418,6 +418,12 @@ class _GcsChannel:
         conn = self._conn
         try:
             return getattr(conn, fn_name)(*args, **kwargs)
+        except TimeoutError:
+            # The caller's own bound ran out on a live connection (Python's
+            # TimeoutError is an OSError): redialing would only repeat the
+            # wait until gcs_rpc_timeout_s. The reference's channel does
+            # that, so its pg.wait(1) takes a minute.
+            raise
         except (protocol.ConnectionClosed, OSError):
             if self._closed or self._register_payload is None:
                 raise
@@ -432,11 +438,14 @@ class _GcsChannel:
             deadline = time.time() + float(config.gcs_rpc_timeout_s)
             delay = 0.1
             while True:
+                redialed = False
                 try:
                     conn2 = self._reconnect(conn)
+                    redialed = True
                     return getattr(conn2, fn_name)(*args, **kwargs)
-                except (protocol.ConnectionClosed, OSError):
-                    if self._closed:
+                except (protocol.ConnectionClosed, OSError) as e:
+                    if self._closed or (redialed and
+                                        isinstance(e, TimeoutError)):
                         raise
                     conn = self._conn
                     if time.time() >= deadline:

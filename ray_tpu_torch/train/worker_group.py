@@ -105,6 +105,18 @@ def gang_local_ranks(runtime: Any, pg: Any, num_workers: int,
     return local
 
 
+def gang_device(runtime: Any, device: DeviceLike) -> torch.device:
+    """The device the gang's ranks compute on (``cuda`` when None). The
+    in-process runtime's rank is this process, so that device must exist
+    here (``resolve_device`` raises otherwise). A runtime with processes
+    places each rank where its device is, and the rank resolves it itself
+    (``TrainWorker``): the process that forms the gang, a Tune trial's CPU
+    actor say, needs no GPU of its own."""
+    if isinstance(runtime, LocalRuntime):
+        return resolve_device(device)
+    return torch.device("cuda" if device is None else device)
+
+
 def runtime_assigns_gpus(runtime: Any) -> bool:
     """True for a runtime whose node manager hands each GPU worker its own
     ``CUDA_VISIBLE_DEVICES`` (the port's own, ``ray_tpu_torch``)."""
@@ -257,7 +269,7 @@ class WorkerGroup:
         if local and runtime_env:
             raise ValueError("the in-process LocalRuntime cannot apply a "
                              "worker runtime_env")
-        dev = resolve_device(device)
+        dev = gang_device(self._rt, device)
         self.num_workers = num_workers
         self.group_name = group_name
         pg_api = getattr(self._rt, "util", None)

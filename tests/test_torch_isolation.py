@@ -2,7 +2,9 @@
 imports jax, optax, cloudpickle, msgpack or anything of the JAX package
 ray_tpu (the card's machine has none of them), its entry points do not
 drift to the CPU without a GPU, and its own runtime (driver and workers)
-loads none of them and keeps its own store library and session root."""
+loads none of them and keeps its own store library and session root.
+Importing the port loads no yaml, pandas or pyarrow either: the cluster
+launcher and the datasets import them only where a call needs them."""
 
 import ast
 import pathlib
@@ -36,6 +38,10 @@ def _forbidden(name: str) -> bool:
                    "msgpack", "aiohttp")
 
 
+# Imported lazily by the calls that need them, never at import time.
+NOT_AT_IMPORT = ("yaml", "pandas", "pyarrow")
+
+
 def _imports(path: pathlib.Path):
     """(line, module) of every import in ``path``, at any depth."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -61,7 +67,11 @@ def test_sources_found():
             "plasma.py", "pickler.py", "serialization.py", "lease.py",
             "protocol.py", "placement_group.py", "lockdep.py",
             "pubsub.py", "controller.py", "handle.py", "replica.py",
-            "admission.py", "server.py"} <= names
+            "admission.py", "server.py", "cluster_utils.py",
+            "node_daemon.py", "node_provider.py", "autoscaler.py",
+            "fake_provider.py", "local_provider.py", "cluster_launcher.py",
+            "gpu_pool_provider.py", "logical.py", "dataset.py", "search.py",
+            "schedulers.py", "placement_groups.py", "tuner.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -92,7 +102,15 @@ def test_importing_every_module_loads_none_of_them():
             "ray_tpu_torch._private.lockdep",
             "ray_tpu_torch.experimental.pubsub",
             "ray_tpu_torch.serve.controller",
-            "ray_tpu_torch.serve.ingress.server"} \
+            "ray_tpu_torch.serve.ingress.server",
+            "ray_tpu_torch.cluster_utils",
+            "ray_tpu_torch.scripts.node_daemon",
+            "ray_tpu_torch.autoscaler",
+            "ray_tpu_torch.autoscaler.cluster_launcher",
+            "ray_tpu_torch.autoscaler.local_provider",
+            "ray_tpu_torch.autoscaler.gpu_pool_provider",
+            "ray_tpu_torch.data", "ray_tpu_torch.data.dataset",
+            "ray_tpu_torch.tune", "ray_tpu_torch.tune.tuner"} \
         <= {m.removesuffix(".__init__") for m in mods}
     code = ("import sys\nbefore = set(sys.modules)\n" +
             "".join(f"import {m}\n" for m in mods) +
@@ -104,6 +122,7 @@ def test_importing_every_module_loads_none_of_them():
     loaded = ast.literal_eval(out.strip().splitlines()[-1])
     assert "ray_tpu_torch" in loaded
     assert not [m for m in loaded if _forbidden(m)], loaded
+    assert not [m for m in loaded if m in NOT_AT_IMPORT], loaded
 
 
 def test_scan_catches_forbidden_imports(tmp_path):

@@ -10,18 +10,28 @@ the module's later tests. The whole block runs under ``deadline``.
 ``deadline(seconds)`` bounds a block run on the main thread: past it, the
 stacks of every thread go to stderr and the block raises ``TimeoutError``,
 so a stuck runtime fails its test instead of stalling the suite.
+
+``reference_results(script, args, workdir)`` runs a program script of this
+directory on ``ray_tpu`` in a fresh interpreter, which exits before the
+port's runtime starts, and returns what it printed after ``RESULTS``. Its
+output goes to files, not pipes: a daemon the script leaves would hold a
+pipe open.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import faulthandler
 import os
+import pathlib
 import signal
+import subprocess
 import sys
 import threading
 
 BLOCK_TIMEOUT_S = 300.0
+TESTS = pathlib.Path(__file__).resolve().parent
 
 
 @contextlib.contextmanager
@@ -67,3 +77,21 @@ def ports_runtime(restore=None, **init_kw):
                 os.environ.pop("OMP_NUM_THREADS", None)
             else:
                 os.environ["OMP_NUM_THREADS"] = old
+
+
+def reference_results(script: str, args, workdir, timeout: float = 280.0):
+    workdir = pathlib.Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(TESTS.parent), str(TESTS)] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    out, err = workdir / "stdout.txt", workdir / "stderr.txt"
+    with open(out, "w") as fo, open(err, "w") as fe:
+        rc = subprocess.run(
+            [sys.executable, str(TESTS / script), *map(str, args)],
+            env=env, stdout=fo, stderr=fe, stdin=subprocess.DEVNULL,
+            timeout=timeout).returncode
+    lines = [ln for ln in out.read_text().splitlines()
+             if ln.startswith("RESULTS ")]
+    assert rc == 0 and lines, f"rc {rc}: {err.read_text()[-3000:]}"
+    return ast.literal_eval(lines[-1][len("RESULTS "):])
