@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only serve    # phases 1-5 and 17 only
     python3 chip_smoke.py --only tune     # phases 1-5 and 18 only
     python3 chip_smoke.py --only jobs     # phases 1-5 and 19 only
+    python3 chip_smoke.py --only correctness  # phases 1-5 and 20 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -263,6 +264,29 @@ Phases, each printed on its own line, each fatal when it fails:
    of the session is left, and the card's free memory is back to what it
    was before (a). Prints the phase's parts: head start, job start, each
    node's start, the resume, the thin client, stop.
+
+20. correctness: the port's correctness tooling on its torch-free
+   control plane. (a) ``python -m ray_tpu_torch._private.lint --json`` in
+   a fresh interpreter: no violation, no stale baseline entry, and torch,
+   jax and ``ray_tpu`` never loaded; prints its time. Then phase 19's
+   ``start --head`` and ``stop``, timed, and the GCS child's and the
+   head's RSS, neither process mapping torch; printed beside 14.47 s,
+   11.09 s and 4,554 MiB, the same head's when each of these
+   interpreters imported torch. (b) The port's runtime (4 CPUs, the
+   card's GPU, the GCS in a process of its own) with
+   ``RAY_TPU_TORCH_PROFILER_ALWAYS_ON=1`` and
+   ``RAY_TPU_TORCH_SUBMIT_TEMPLATE_VERIFY=1``: one sampler in this
+   process while up, none after ``shutdown``. Phase 4's step in a
+   ``num_gpus=1`` task: 24/12/12 launches a step counted there, the
+   losses phase 4's within 16b's tolerance; while it steps on, ``python -m
+   ray_tpu_torch profile --duration 2`` reads a window of the running
+   sampler of every process (the GCS, the node manager, both drivers,
+   every live worker; none starts one), and the GPU worker's stacks hold
+   the step's frames. Then 1,000 small tasks through the template path,
+   every blob equal to a fresh pickle of its spec. Prints the step's
+   median ms with both modes on beside 16b's and phase 4's, and in the
+   GPU task blocks of 5 steps with the sampler running, stopped, stopped,
+   running.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -3211,13 +3235,7 @@ def runtime_train(rt, tm, fa, run, nm):
     """16b: the main path through the port's runtime, at phase 14a's cell
     and gates."""
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
-    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
-                      train_batch(cfg.vocab_size), "runtime phase-4 again",
-                      cfg.n_layers)
-    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
-    tol = max(GANG_LOSS_ATOL, spread)
-    del again
-    gc_collect()
+    tol = loss_tolerance(tm, fa, run, "runtime phase-4 again")
     steps = WARMUP_STEPS + TIMED_STEPS
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
@@ -4359,9 +4377,10 @@ def jobs_train(state, start, n, work, mode):
     return out
 
 
-def _cli(env, out_dir, *args, timeout=120):
+def _cli(env, out_dir, *args, timeout=120, with_err=False):
     """``python -m ray_tpu_torch ARGS`` from the repo's root, output to
-    files (the head daemon keeps whatever it inherits open)."""
+    files (the head daemon keeps whatever it inherits open). Returns its
+    output and seconds, with its error output between when asked."""
     name = os.path.join(out_dir, "cli-" + "-".join(args[:2]))
     with open(name + ".out", "w+") as fo, open(name + ".err", "w+") as fe:
         t0 = time.perf_counter()
@@ -4375,9 +4394,9 @@ def _cli(env, out_dir, *args, timeout=120):
         fe.seek(0)
         out, err = fo.read(), fe.read()
     if rc != 0:
-        raise AssertionError(f"jobs: `{' '.join(args)}` exited {rc}: "
+        raise AssertionError(f"cli: `{' '.join(args)}` exited {rc}: "
                              f"{out[-2000:]} {err[-2000:]}")
-    return out, s
+    return (out, err, s) if with_err else (out, s)
 
 
 def _http(port, path, timeout=120):
@@ -4417,14 +4436,7 @@ def jobs_phase(tm, fa, run, tol, errors):
 
     t_phase = time.perf_counter()
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
-    # 16b's tolerance: 1e-6, or phase 4's own spread in this call.
-    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
-                      train_batch(cfg.vocab_size), "jobs phase-4 again",
-                      cfg.n_layers)
-    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
-    loss_tol = max(GANG_LOSS_ATOL, spread)
-    del again
-    gc_collect()
+    loss_tol = loss_tolerance(tm, fa, run, "jobs phase-4 again")
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
     steps = JOBS_FIRST + JOBS_SECOND
@@ -4677,6 +4689,380 @@ def jobs_phase(tm, fa, run, tol, errors):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the correctness tooling on the port's torch-free control plane:
+# its raylint, and the main path's step under the reference's two
+# correctness modes (the always-on sampling profiler, the spec-template
+# verify mode).
+
+CORRECTNESS_TASKS = 1000
+CORRECTNESS_HOLD_S = 8.0     # the GPU task steps on this long after its checks
+CORRECTNESS_PROFILE_S = 2
+# The same head's `start --head`, `stop` and GCS child's RSS when each of
+# these interpreters imported torch (NVIDIA H100 80GB HBM3, 700.00 W).
+CLI_WITH_TORCH = {"start_s": 14.47, "stop_s": 11.09, "gcs_rss_mib": 4554}
+
+LINT_PROBE = """\
+import json, runpy, sys, time
+t0 = time.perf_counter()
+sys.argv = ["lint", "--json"]
+try:
+    runpy.run_module("ray_tpu_torch._private.lint", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print("LINT " + json.dumps({"rc": rc, "s": time.perf_counter() - t0,
+                           "modules": sorted({m.split(".")[0]
+                                              for m in sys.modules})}))
+"""
+
+
+def loss_tolerance(tm, fa, run, label):
+    """16b's tolerance: 1e-6, or phase 4's own spread in this call (phase
+    4's steps once more, against ``run``)."""
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
+                      train_batch(cfg.vocab_size), label, cfg.n_layers)
+    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
+    del again
+    gc_collect()
+    return max(GANG_LOSS_ATOL, spread)
+
+
+def _rss_mib(pid):
+    """A process's resident MiB from /proc: all of it (``VmRSS``), and its
+    anonymous and shared-memory parts (the store's arena is shared)."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for ln in f:
+            key = ln.split(":")[0]
+            if key in ("VmRSS", "RssAnon", "RssShmem"):
+                out[key] = int(ln.split()[1]) / 1024
+    if "VmRSS" not in out:
+        raise AssertionError(f"correctness: no VmRSS for pid {pid}")
+    return out
+
+
+def _maps_torch(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def correctness_lint():
+    """20a: the port's lint in a fresh interpreter (this machine has no
+    jax), then the CLI's head: its start and stop, and what its processes
+    hold."""
+    from ray_tpu_torch._private.test_utils import session_pids
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", LINT_PROBE], cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    lines = done.stdout.splitlines()
+    tail = [ln for ln in lines if ln.startswith("LINT ")]
+    if done.returncode != 0 or not tail:
+        raise AssertionError(f"correctness-lint: exited {done.returncode}: "
+                             f"{done.stdout[-2000:]} {done.stderr[-2000:]}")
+    probe = json.loads(tail[-1][len("LINT "):])
+    report = json.loads("\n".join(ln for ln in lines
+                                  if not ln.startswith("LINT ")))
+    if probe["rc"] != 0 or report["violations"] or \
+            report["stale_baseline"] or {"torch", "jax", "ray_tpu"} & set(
+                probe["modules"]):
+        raise AssertionError(f"correctness-lint: rc {probe['rc']}, "
+                             f"{report}, modules {probe['modules']}")
+    out = {"lint_s": probe["s"], "lint_wall_s": wall_s,
+           "lint_total": report["total_current"]}
+    log(f"correctness-lint ok: `python -m ray_tpu_torch._private.lint "
+        f"--json` in a fresh interpreter: 0 violations, 0 stale baseline "
+        f"entries; torch, jax and ray_tpu not loaded; lint "
+        f"{probe['s']:.2f} s, the interpreter {wall_s:.2f} s; card: "
+        f"{gpu_line()}")
+
+    with tempfile.TemporaryDirectory(prefix="correctness-head-") as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("RAY_TPU_TORCH_")}
+        env["TMPDIR"] = tmp
+        _, out["start_s"] = _cli(
+            env, tmp, "start", "--head", "--num-cpus", str(JOBS_CPUS),
+            "--num-gpus", "1", "--object-store-memory",
+            str(JOBS_STORE_BYTES))
+        try:
+            head = int(open(os.path.join(
+                tmp, "ray_tpu_torch", "head.pid")).read())
+            gcs = []
+            for pid in session_pids(head, tmp):
+                with contextlib.suppress(OSError):
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        if b"ray_tpu_torch._private.gcs" in f.read():
+                            gcs.append(pid)
+            if len(gcs) != 1:
+                raise AssertionError(f"correctness-cli: GCS children {gcs}")
+            out["gcs_rss_mib"] = _rss_mib(gcs[0])
+            out["head_rss_mib"] = _rss_mib(head)
+            torch_in = [pid for pid in (head, gcs[0]) if _maps_torch(pid)]
+        finally:
+            _, out["stop_s"] = _cli(env, tmp, "stop")
+    if torch_in:
+        raise AssertionError(f"correctness-cli: torch mapped in {torch_in} "
+                             f"(head {head}, GCS {gcs[0]})")
+    def parts(rss):
+        # Some kernels' /proc gives VmRSS and no breakdown.
+        if "RssAnon" not in rss:
+            return "no breakdown in /proc"
+        return (f"anonymous {rss['RssAnon']:.1f}, shared memory "
+                f"{rss.get('RssShmem', 0):.1f}")
+
+    gcs_rss, head_rss = out["gcs_rss_mib"], out["head_rss_mib"]
+    log(f"correctness-cli ok: `start --head --num-cpus {JOBS_CPUS} "
+        f"--num-gpus 1 --object-store-memory {JOBS_STORE_BYTES}` "
+        f"{out['start_s']:.2f} s (with torch: {CLI_WITH_TORCH['start_s']} "
+        f"s), `stop` {out['stop_s']:.2f} s (with torch: "
+        f"{CLI_WITH_TORCH['stop_s']} s); the GCS child's RSS "
+        f"{gcs_rss['VmRSS']:.1f} MiB (with torch: "
+        f"{CLI_WITH_TORCH['gcs_rss_mib']:,} MiB; {parts(gcs_rss)}), the "
+        f"head's (node manager and the store's arena) "
+        f"{head_rss['VmRSS']:.1f} MiB "
+        f"({parts(head_rss)}); neither maps torch; card: {gpu_line()}")
+    return out
+
+
+def correctness_gpu_step(marker, hold_s):
+    """20b, in a ``num_gpus=1`` worker: phase 4's step (2 warm-up, 5 timed,
+    the flash launches counted here), then the same step again for
+    ``hold_s`` seconds once this process's pid is in ``marker``: the
+    profile window's."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    step = tm.make_train_step(cfg)
+    batch = train_batch(cfg.vocab_size)
+    run = run_steps(fa, new_state(tm, cfg), step, batch, "correctness-step",
+                    cfg.n_layers)
+    state = new_state(tm, cfg)
+    with open(marker + ".tmp", "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(marker + ".tmp", marker)
+    held = 0
+    end = time.time() + hold_s
+    while time.time() < end:
+        state, metrics = step(state, batch)
+        metrics["loss"].item()
+        held += 1
+    # The sampler's share of the step, in this process: blocks of
+    # TIMED_STEPS steps with it running, stopped, stopped, running.
+    from ray_tpu_torch._private import profiler
+
+    sampler = profiler.get_profiler()
+    blocks = []
+    for on in (True, False, False, True):
+        if on:
+            sampler.start()
+        else:
+            sampler.stop()
+        times = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            metrics["loss"].item()
+            times.append(time.perf_counter() - t0)
+        blocks.append((on, statistics.median(times) * 1e3))
+    return {"losses": run.losses, "times": run.times,
+            "launches": run.launches, "peak": run.peak, "held_steps": held,
+            "sampler_blocks": blocks, "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def correctness_echo(i):
+    return i
+
+
+def _profile_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "rtpu-profiler"]
+
+
+def correctness_modes(tm, fa, run, tol, step16_ms):
+    """20b: the port's runtime with both modes on and its GCS in a process
+    of its own; phase 4's step in a GPU task, profiled through the CLI
+    while it runs; 1,000 submissions, each blob verified."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import spec_template
+    from ray_tpu_torch._private import worker as tworker
+    from ray_tpu_torch._private.config import config
+
+    knobs = ("profiler_always_on", "submit_template_verify",
+             "gcs_out_of_process")
+    saved = {k: config.get(k) for k in knobs}
+    saved_env = {k: os.environ.get("RAY_TPU_TORCH_" + k.upper())
+                 for k in knobs}
+    made = []
+    real_make = spec_template.SpecTemplate.make
+
+    def counted_make(self, task_id, args, submitted_at):
+        made.append(self._verify)
+        return real_make(self, task_id, args, submitted_at)
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    out = {}
+    for k in knobs:
+        os.environ["RAY_TPU_TORCH_" + k.upper()] = "1"
+        config.set(k, True)
+    spec_template.SpecTemplate.make = counted_make
+    try:
+        with tempfile.TemporaryDirectory(prefix="correctness-") as tmp:
+            rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+            try:
+                cluster = tworker._global_cluster
+                gcs_pid, nm = cluster.gcs_proc.pid, cluster.nm
+                if len(_profile_threads()) != 1:
+                    raise AssertionError(f"correctness: samplers here "
+                                         f"{_profile_threads()}")
+                marker = os.path.join(tmp, "stepping")
+                t_submit = time.time()
+                ref = rt.remote(correctness_gpu_step).options(
+                    num_gpus=1).remote(marker, CORRECTNESS_HOLD_S)
+                while not os.path.exists(marker):
+                    ready, _ = rt.wait([ref], timeout=0.1)
+                    if ready:
+                        rt.get(ref, timeout=60)    # raises the task's error
+                        raise AssertionError("correctness: the GPU task "
+                                             "ended before its hold")
+                    if time.time() - t_submit > 600:
+                        raise AssertionError("correctness: no GPU step")
+                gpu_pid = int(open(marker).read())
+                with nm._lock:
+                    workers = {w.proc.pid for w in nm._workers.values()
+                               if w.conn is not None and not w.conn.closed
+                               and w.proc.poll() is None}
+                folded = os.path.join(tmp, "profile.folded")
+                _, err, out["profile_s"] = _cli(
+                    dict(os.environ), tmp, "profile", "--duration",
+                    str(CORRECTNESS_PROFILE_S), "--format", "folded",
+                    "--output", folded, "--address", cluster.address,
+                    with_err=True)
+                got = rt.get(ref, timeout=600)
+                lines = open(folded).read().splitlines()
+                kinds = {}
+                for ln in lines:
+                    label = ln.split(";", 1)[0]
+                    pid = int(re.search(r"pid=(\d+)", label).group(1))
+                    kinds.setdefault(label.split()[0], set()).add(pid)
+                mine = [ln for ln in lines if f"pid={gpu_pid};" in ln]
+                summary = re.search(r"sampler already running in (\d+) of "
+                                    r"(\d+) processes", err)
+                if kinds.get("gcs") != {gcs_pid} or \
+                        kinds.get("node_manager") != {os.getpid()} or \
+                        os.getpid() not in kinds.get("driver", ()) or \
+                        len(kinds.get("driver", ())) != 2 or \
+                        not workers <= kinds.get("worker", set()) or \
+                        gpu_pid not in workers or not summary or \
+                        summary.group(1) != summary.group(2) or \
+                        not any("correctness_gpu_step" in ln for ln in mine) \
+                        or not any("transformer.py" in ln for ln in mine):
+                    raise AssertionError(
+                        f"correctness-profile: processes {kinds}, GCS "
+                        f"{gcs_pid}, workers {workers}, GPU worker "
+                        f"{gpu_pid} ({len(mine)} stacks); {err[-500:]}")
+                out["profile"] = {k: len(v) for k, v in kinds.items()}
+                out["gpu_stacks"] = len(mine)
+
+                err_loss = max(abs(a - b)
+                               for a, b in zip(got["losses"], run.losses))
+                launches = got["launches"]
+                if len(got["losses"]) != steps or err_loss > tol or \
+                        launches != {k: v * steps for k, v in want.items()}:
+                    raise AssertionError(
+                        f"correctness-step: losses {got['losses']} vs phase "
+                        f"4's {run.losses} (tol {tol}); launches {launches}")
+                out.update(
+                    losses=got["losses"], loss_err=err_loss, tol=tol,
+                    launches=launches, held_steps=got["held_steps"],
+                    step_ms=statistics.median(
+                        got["times"][WARMUP_STEPS:]) * 1e3,
+                    peak_gb=got["peak"] / 1e9,
+                    sampler_blocks=got["sampler_blocks"],
+                    first_result_s=time.time() - t_submit)
+
+                echo = rt.remote(correctness_echo)
+                del made[:]
+                t0 = time.perf_counter()
+                vals = rt.get([echo.remote(i)
+                               for i in range(CORRECTNESS_TASKS)],
+                              timeout=600)
+                out["tasks_s"] = time.perf_counter() - t0
+                tpl = echo._submit_template.tpl
+                out["verified"] = len(made)
+                least = CORRECTNESS_TASKS - tworker.SubmitTemplate.WARMUP_CALLS
+                if vals != list(range(CORRECTNESS_TASKS)) or tpl is None \
+                        or not tpl._verify or not all(made) or \
+                        len(made) < least:
+                    raise AssertionError(
+                        f"correctness-verify: {len(made)} verified blobs of "
+                        f"{CORRECTNESS_TASKS} submissions, template {tpl}")
+            finally:
+                rt.shutdown()
+        end = time.time() + 5
+        while _profile_threads() and time.time() < end:
+            time.sleep(0.05)
+        if _profile_threads():
+            raise AssertionError(f"correctness: samplers left after "
+                                 f"shutdown {_profile_threads()}")
+    finally:
+        spec_template.SpecTemplate.make = real_make
+        for k in knobs:
+            config.set(k, saved[k])
+            if saved_env[k] is None:
+                os.environ.pop("RAY_TPU_TORCH_" + k.upper(), None)
+            else:
+                os.environ["RAY_TPU_TORCH_" + k.upper()] = saved_env[k]
+    log(f"correctness-profile ok: `python -m ray_tpu_torch profile "
+        f"--duration {CORRECTNESS_PROFILE_S}` in {out['profile_s']:.2f} s "
+        f"read every process's running sampler ({summary.group(0)}): "
+        f"{out['profile']} (the GCS in its own process, the node manager "
+        f"in this one, this driver and the CLI's), every live worker; "
+        f"{out['gpu_stacks']} stacks of the GPU worker (pid {gpu_pid}) in "
+        f"correctness_gpu_step and models/transformer.py; one sampler here "
+        f"while up, none after shutdown")
+    log(f"correctness-step ok, both modes on: phase 4's step in a num_gpus"
+        f"=1 task (CUDA_VISIBLE_DEVICES={got['cuda_visible_devices']}): "
+        f"losses = phase 4's within {out['loss_err']:.3e} (tol {tol:.1e}); "
+        f"launches {launches} in {steps} steps; {out['held_steps']} more "
+        f"steps while profiled")
+    log(f"correctness-verify ok: {CORRECTNESS_TASKS} tasks returned in "
+        f"{out['tasks_s']:.2f} s, {out['verified']} template blobs each "
+        f"equal to a fresh pickle of its spec")
+    beside = (f"16b {step16_ms:.2f} ms" if step16_ms is not None
+              else "16b not run in this call")
+    log(f"correctness step_ms {out['step_ms']:.2f} with both modes on "
+        f"(median of {TIMED_STEPS}; all "
+        f"{[round(t * 1e3, 2) for t in got['times']]}), {beside}, phase 4 "
+        f"{run.step_ms:.2f} ms; the task's peak memory {out['peak_gb']:.2f} "
+        f"GB; card: {gpu_line()}")
+    log("correctness sampler in the GPU task, median step ms of "
+        f"{TIMED_STEPS} a block: " + ", ".join(
+            f"{'running' if on else 'stopped'} {ms:.2f}"
+            for on, ms in out["sampler_blocks"]))
+    return out
+
+
+def correctness_phase(tm, fa, run, step16_ms=None):
+    """Phase 20: the port's lint and its two correctness modes."""
+    t0 = time.perf_counter()
+    out = {"lint": correctness_lint()}
+    tol = loss_tolerance(tm, fa, run, "correctness phase-4 again")
+    out["modes"] = correctness_modes(tm, fa, run, tol, step16_ms)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"correctness phase ok in {out['phase_s']:.1f} s")
+    log("correctness metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4687,7 +5073,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
     ap.add_argument("--only", choices=["sharded", "runtime", "serve", "tune",
-                                       "jobs"],
+                                       "jobs", "correctness"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -4827,6 +5213,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "correctness":
+        correct = correctness_phase(tm, fa, run)
+        for row in rows:
+            row["correctness_launches"] = correct["modes"]["launches"][
+                row["name"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
@@ -4868,7 +5266,12 @@ def main() -> int:
     tuned = tune_phase(tm, fa, run, bf16, errors)
     gc_collect()
     jobs = jobs_phase(tm, fa, run, bf16, errors)
+    gc_collect()
+    correct = correctness_phase(tm, fa, run,
+                                step16_ms=runtime["train"]["step_ms"])
     for row in rows:
+        row["correctness_launches"] = correct["modes"]["launches"][
+            row["name"]]
         row["job_launches"] = jobs["workflow"]["launches_per_step"][
             row["name"]]
         row["tune_launches"] = [x["launches_per_step"][row["name"]]

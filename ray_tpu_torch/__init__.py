@@ -5,7 +5,7 @@ The JAX package ``ray_tpu`` is the reference; module names here mirror it
 ``models.generate``, ``serve.llm``, ``rllib``, ``parallel.collective``,
 ``train``) so each counterpart is easy to find; ``random`` repeats the
 threefry ``jax.random`` the serving path and the RL policies sample with.
-This package imports ``torch`` and numpy, never ``jax``, ``optax`` or
+This package uses ``torch`` and numpy, never ``jax``, ``optax`` or
 ``cloudpickle`` and nothing of ``ray_tpu``. Its kernels are CUDA C++ for
 ``sm_90a`` under ``csrc/``, built at first use (``ops/_kernels.py``).
 
@@ -21,6 +21,12 @@ ingress), and so ``runtime.serve`` for the LLM tier.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise rather than drift to the CPU.
+
+``import ray_tpu_torch`` loads no torch: the control plane (the GCS, the
+node manager, the CLI, the dashboard head, the lint) runs without it, as
+the reference's runs without jax. ``resolve_device`` is resolved on first
+access, and a process that imports torch afterwards still moves its
+tensors out of band (``_private/device_objects.py``).
 """
 
 from ray_tpu_torch.version import __version__  # noqa: F401
@@ -53,7 +59,6 @@ from ray_tpu_torch.api import (  # noqa: E402,F401
     nodes,
     timeline,
 )
-from ray_tpu_torch.device import resolve_device  # noqa: E402,F401
 
 # The node manager hands each GPU worker its own CUDA_VISIBLE_DEVICES:
 # modules that pin a rank's GPU themselves leave it to this runtime.
@@ -67,3 +72,13 @@ __all__ = [
     "nodes", "timeline", "exceptions", "resolve_device", "ASSIGNS_GPUS",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # ``resolve_device`` imports torch: resolved on first use, so that the
+    # package itself does not.
+    if name == "resolve_device":
+        from ray_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -199,6 +199,13 @@ _d("local_lease_backoff_s", 1.0,
    "spilled-back work drains through the fair central queue first.")
 
 # --- driver submit fast path (spec templates / batch frames / shm ring) -----
+_d("submit_template_verify", False,
+   "Template correctness mode: every template-patched spec blob is "
+   "compared against a fresh pickle.dumps of an equivalently "
+   "constructed TaskSpec and must match BYTE-FOR-BYTE (raises on "
+   "mismatch). The equivalence tests turn this on; leave it off in "
+   "production — it re-pays exactly the per-call cost the template "
+   "exists to remove. Env: RAY_TPU_TORCH_SUBMIT_TEMPLATE_VERIFY.")
 _d("submit_ring_bytes", 4 * 1024 * 1024,
    "Data capacity of the per-client submit ring. At ~200 bytes per "
    "nop-task spec blob the default holds ~20k in-flight submissions "
@@ -372,8 +379,25 @@ _d("profiler_max_stacks", 2048,
    "and accounts its samples in profiler_dropped_samples_total — deep/"
    "churning workloads see a truncated-but-honest profile, never "
    "unbounded memory.")
+_d("profiler_always_on", False,
+   "Start the background sampler in every ray_tpu_torch process at init: "
+   "the driver, the GCS, the node manager and every worker "
+   "(always-available flamegraphs; `ray_tpu_torch profile` then reads a "
+   "window of the running sampler instead of starting one). "
+   "Env: RAY_TPU_TORCH_PROFILER_ALWAYS_ON.")
 
 # --- gpu --------------------------------------------------------------------
+_d("gpu_ids", "",
+   "The GPUs the node manager assigned this worker, comma-separated "
+   "(the worker's CUDA_VISIBLE_DEVICES holds the same ids); empty for a "
+   "CPU worker and the driver. Set per worker at spawn; read with "
+   "config.refresh_from_env. Env: RAY_TPU_TORCH_GPU_IDS.")
+_d("session_dir", "",
+   "The session directory of the node this worker runs on (logs, "
+   "sockets, the job manager's job logs). Set per worker at spawn; read "
+   "with config.refresh_from_env, since a worker forked from a zygote "
+   "gets it after the config module was imported. "
+   "Env: RAY_TPU_TORCH_SESSION_DIR.")
 _d("gpu_topology", "",
    "Slice label of a node with GPUs (its NVLink domain): placement groups "
    "whose bundles all want GPUs try to fit inside one slice first.")
@@ -472,24 +496,6 @@ _d("lockdep_enabled", False,
    "merely inverted order). Violations are recorded, not raised. "
    "Installed at import; the GCS, node manager and workers inherit the "
    "variable. Env: RAY_TPU_TORCH_LOCKDEP_ENABLED.")
-
-# --- modes of the reference that the port leaves out ----------------------
-# Setting one is refused at init(), not quietly ignored; ROADMAP.md queues
-# each for a later slice.
-UNPORTED = {
-    "profiler_always_on": "the always-on sampling profiler",
-    "submit_template_verify": "the spec-template byte-for-byte verify mode",
-}
-
-
-def refuse_unported() -> None:
-    for name, what in UNPORTED.items():
-        var = _ENV_PREFIX + name.upper()
-        if os.environ.get(var, "").lower() in ("1", "true", "yes", "on"):
-            raise NotImplementedError(
-                f"{var}: {what} is not ported; ROADMAP.md queues it for a "
-                f"later slice")
-
 
 # --- logging ----------------------------------------------------------------
 _d("usage_stats_enabled", True,

@@ -48,23 +48,28 @@ one (the ``ray_tpu`` module does), without importing anything;
 ``LocalRuntime`` needs no hook, since its values never leave the process.
 
 On the port's own runtime the serializer installs the hook itself at its
-first serialize (``maybe_install``). Not ported: donation
-(``_donate_result``); the port's runtime refuses the option.
+first serialize once torch is loaded in the process (``maybe_install``),
+as the reference's does once jax is: no tensor can exist before then, and
+the control plane (GCS, node manager, CLI, dashboard head) never loads
+torch at all. This module imports torch only inside the calls that handle
+a tensor. Not ported: donation (``_donate_result``); the port's runtime
+refuses the option.
 """
 
 from __future__ import annotations
 
 import json
 import pickle
+import sys
 import threading
 import warnings
 import weakref
-from typing import Any, Callable, Optional
-
-import numpy as np
-import torch
+from typing import TYPE_CHECKING, Any, Callable, Optional
 
 from ray_tpu_torch._private.config import config
+
+if TYPE_CHECKING:
+    import torch
 
 _stats_lock = threading.Lock()
 _stats = {
@@ -78,6 +83,13 @@ _stats = {
 _install_lock = threading.Lock()
 _local: "weakref.WeakKeyDictionary[Any, torch.Tensor]" = \
     weakref.WeakKeyDictionary()
+
+
+def _is_tensor(obj: Any) -> bool:
+    """``obj`` is a ``torch.Tensor``, without importing torch: where torch
+    was never imported, no tensor can exist either."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(obj, torch.Tensor)
 _local_lock = threading.Lock()
 
 
@@ -120,6 +132,9 @@ def enabled() -> bool:
 def takes(obj: Any) -> bool:
     """A plain dense tensor the frame can carry; everything else (grad
     leaves, parameters, sparse or meta tensors) keeps torch's pickling."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
     return (type(obj) is torch.Tensor and obj.layout == torch.strided
             and not obj.requires_grad and obj.device.type in ("cpu", "cuda"))
 
@@ -131,6 +146,8 @@ def frame(t: torch.Tensor):
     JSON header ``load_tensor`` reads, the tensor's bytes as a host
     uint8 numpy array, and how many host copies making it took (one for a
     CUDA tensor, one more for a non-contiguous one)."""
+    import torch
+
     header = json.dumps({
         "v": 1,
         "dtype": str(t.dtype).removeprefix("torch."),
@@ -164,6 +181,8 @@ def reduce_tensor(obj: Any) -> Optional[tuple]:
 def _pick_device(meta: dict) -> torch.device:
     """``cuda:i`` for a tensor put from ``cuda:i`` when this process has
     that device; the CPU otherwise."""
+    import torch
+
     dev = torch.device(meta.get("device", "cpu"))
     if dev.type == "cuda" and torch.cuda.is_available():
         index = dev.index or 0
@@ -185,6 +204,9 @@ def load_tensor(header: bytes, buf) -> torch.Tensor:
     arena view, or bytes) onto the device ``_pick_device`` chooses.
     Nothing returned refers to ``buf``. Counts nothing: a workflow's
     checkpoint loads through it, outside the store."""
+    import numpy as np
+    import torch
+
     meta = json.loads(header)
     dtype = getattr(torch, meta["dtype"])
     device = _pick_device(meta)
@@ -211,7 +233,7 @@ def load_tensor(header: bytes, buf) -> torch.Tensor:
 
 def note_put(ref: Any, value: Any) -> None:
     """Register a tensor this process put as ``ref``, for ``lookup_local``."""
-    if not isinstance(value, torch.Tensor) or not enabled():
+    if not _is_tensor(value) or not enabled():
         return
     try:
         with _local_lock:
@@ -237,7 +259,7 @@ def lookup_local(ref: Any) -> Optional[torch.Tensor]:
 def core_note_put(core, oid_bytes: bytes, value: Any) -> None:
     """The port's runtime: record a tensor this worker put or returned,
     for by-reference gets (the reference's ``note_put``)."""
-    if not isinstance(value, torch.Tensor) or not enabled():
+    if not _is_tensor(value) or not enabled():
         return
     core._device_local[oid_bytes] = value
 
@@ -305,7 +327,8 @@ def install_on(runtime: Any) -> Optional[Callable[[], None]]:
 
 
 def maybe_install() -> None:
-    """Install the hook into the port's own serializer, once."""
+    """Install the hook into the port's own serializer, once. The
+    serializer calls this only once torch is loaded."""
     from ray_tpu_torch._private import serialization
 
     with _install_lock:

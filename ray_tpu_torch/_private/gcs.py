@@ -65,7 +65,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set, Tuple
 
-from ray_tpu_torch._private import inline_objects, protocol
+from ray_tpu_torch._private import inline_objects, profiler, protocol
 from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, PlacementGroupID, TaskID
 from ray_tpu_torch.util import metrics as metrics_util
 from ray_tpu_torch._private.task_spec import (
@@ -398,6 +398,11 @@ class GcsServer:
         self._publisher = threading.Thread(target=self._publisher_loop,
                                            daemon=True, name="rtpu-gcs-pub")
         self._publisher.start()
+        # Always-on sampling profiler (profiler_always_on): the GCS's
+        # process samples from the start, whether it is a subprocess of
+        # its own or shares the driver's (one idempotent sampler a
+        # process; the driver's disconnect or the process's exit ends it).
+        profiler.maybe_start_always_on()
 
     # ------------------------------------------------------------------ util
 
@@ -787,8 +792,12 @@ class GcsServer:
                 if entry is not None and entry.state == RESTARTING \
                         and entry.node_id is None:
                     # Node never rejoined: equivalent to node death.
-                    # (actor -> obj, forward; a PG task's completion takes
-                    # actor before obj too: _apply_task_done_records.)
+                    # raylint: disable-next=lock-order (actor→obj here
+                    # vs obj→actor in _h_task_done via _release_for's PG
+                    # branch: every path to either order holds
+                    # _sched_lock first, and _apply_task_done_records
+                    # takes _actor_lock before _obj_lock whenever a record
+                    # releases a bundle, so the inversion is never taken)
                     if not self._schedule_actor(entry):
                         self._queued_tasks.append(_ActorCreationShim(entry))
                     self._persist_actor(aid)
@@ -2758,8 +2767,6 @@ class GcsServer:
                                     and not p.get("node_id"))
 
         def run():
-            from ray_tpu_torch._private import profiler
-
             self_box: Dict[str, Any] = {}
             self_thread = None
             if include_self:

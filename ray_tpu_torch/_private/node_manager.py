@@ -33,7 +33,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set
 
 from ray_tpu_torch import exceptions
-from ray_tpu_torch._private import protocol, serialization
+from ray_tpu_torch._private import profiler, protocol, serialization
 from ray_tpu_torch._private.config import config
 from ray_tpu_torch._private.ids import NodeID, WorkerID
 from ray_tpu_torch._private.task_spec import (
@@ -423,6 +423,9 @@ class NodeManager:
         # torch-preloaded image is page-table-bound; K forks on K cores
         # multiply spawn throughput by K).
         self._start_zygotes()
+        # Always-on sampling profiler (profiler_always_on): one
+        # idempotent sampler a process, as the GCS's.
+        profiler.maybe_start_always_on()
 
         # Prestart the pool (reference: worker_pool.h:245 PrestartWorkers).
         for _ in range(self._max_pool):

@@ -1,4 +1,4 @@
-"""In-process sampling profiler — on-demand flamegraphs for every
+"""In-process sampling profiler — always-available flamegraphs for every
 process in the cluster (reference: Ray's per-worker py-spy integration,
 ``dashboard/modules/reporter/reporter_agent.py`` CpuProfilingManager; the
 Ray paper treats per-worker profiling as a first-class dashboard verb).
@@ -308,19 +308,52 @@ class SamplingProfiler:
         """Blocking convenience: run one bounded collection window and
         return the profile. Safe to call from any service thread (the
         sampling happens on the daemon sampler thread); concurrent
-        windows serialize, and the sampler is stopped again after each."""
+        windows serialize. If the sampler was already running (the
+        always-on mode), it keeps running afterwards with its table
+        reset; otherwise it is stopped again. ``sampler_started`` in the
+        result says whether this window had to start the sampler."""
         duration_s = min(_MAX_DURATION_S, max(0.05, float(duration_s)))
         # Bounded by construction: the window lock holder exits within
         # its own clamped duration, so the longest wait is one window.
-        # The sleep IS the window; the join inside stop() is bounded
-        # (2s) and the sampler thread never takes the window lock.
         with self._window_lock:
-            self.start(hz=hz, mode=mode)
+            started_here = self.start(hz=hz, mode=mode)
+            restore = None
+            if not started_here and (
+                    (hz is not None and
+                     min(_MAX_HZ, max(_MIN_HZ, float(hz))) != self._hz)
+                    or (mode is not None and mode != self._mode)):
+                # Always-on sampler running with different knobs: re-arm
+                # with the REQUESTED hz/mode for this window (a cpu-mode
+                # 250 Hz request must not silently come back wall@67),
+                # then restore the standing configuration after.
+                restore = (self._hz, self._mode)
+                # raylint: disable-next=blocking-under-lock (bounded 2s
+                # join of the sampler thread, which never takes the
+                # window lock; see the stop() below for the rationale)
+                self.stop()
+                self.start(hz=hz, mode=mode)
             self.reset()
+            # raylint: disable-next=blocking-under-lock (the window lock
+            # exists to serialize collection windows; the sleep IS the
+            # window, bounded by the clamped duration_s above, and the
+            # sampler thread it waits on never takes this lock)
             time.sleep(duration_s)
             out = self.collect(reset=True)
-            self.stop()
+            if started_here:
+                # raylint: disable-next=blocking-under-lock (the join
+                # inside stop() is bounded (2s) and the sampler thread
+                # being joined never acquires the window lock; stopping
+                # inside it keeps a racing second window from observing
+                # a half-stopped sampler)
+                self.stop()
+            elif restore is not None:
+                # raylint: disable-next=blocking-under-lock (same
+                # bounded join as above; the always-on sampler resumes
+                # with its standing hz/mode)
+                self.stop()
+                self.start(hz=restore[0], mode=restore[1])
         out["duration_s"] = duration_s
+        out["sampler_started"] = started_here
         return out
 
 
@@ -335,6 +368,23 @@ def get_profiler() -> SamplingProfiler:
         if _profiler is None:
             _profiler = SamplingProfiler()
         return _profiler
+
+
+def maybe_start_always_on() -> bool:
+    """Start the background sampler if ``profiler_always_on`` is set
+    (the overhead-A/B toggle and the 'always-available' deployment
+    mode). Idempotent."""
+    if not bool(config.profiler_always_on):
+        return False
+    return get_profiler().start(hz=float(config.profiler_hz))
+
+
+def stop_always_on() -> None:
+    """Stop the background sampler on shutdown (repeated init/shutdown
+    cycles must not stack sampler threads)."""
+    prof = _profiler
+    if prof is not None:
+        prof.stop()
 
 
 def profile_self(duration_s: float, hz: Optional[float] = None,

@@ -32,7 +32,7 @@ _BUF_DESC = struct.Struct("<QQ")
 # callable consulted for every object the pickler visits; returns a reduce
 # tuple to take over serialization of that object, or None to fall through
 # to default pickling. The port's torch hook is installed at the first
-# serialize.
+# serialize after torch is imported.
 _reducer_hook: Optional[Callable[[Any], Optional[tuple]]] = None
 
 
@@ -72,10 +72,12 @@ class _HookedPickler(pickler.Pickler):
 
 
 def _maybe_install_device_hook() -> None:
-    """Install the torch tensor reducer at the first serialize. The port
-    always has torch, so this is no probe; a failure to install raises
-    (no quiet fallback to pickling tensors in band)."""
-    if _reducer_hook is not None:
+    """Install the torch tensor reducer once torch exists in this process.
+    Cheap when idle (one sys.modules probe): a process that never imports
+    torch (the GCS, the node manager, the CLI) can hold no tensor, and
+    never loads torch for this. A failure to install raises (no quiet
+    fallback to pickling tensors in band)."""
+    if _reducer_hook is not None or "torch" not in sys.modules:
         return
     from ray_tpu_torch._private import device_objects
 

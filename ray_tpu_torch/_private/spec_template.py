@@ -23,7 +23,8 @@ and the protocol-4 FRAME header — are re-emitted/re-written per call.
 Every template self-checks at build time (patched bytes must equal
 ``pickle.dumps`` of an equivalently constructed spec for probe values)
 and refuses to build if the structure doesn't match — a future pickler
-change degrades to the classic path, never to wrong bytes.
+change degrades to the classic path, never to wrong bytes. The
+``submit_template_verify`` knob extends that check to EVERY call.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ class SpecTemplate:
 
     __slots__ = ("_const", "_pre", "_frame_tail", "_seg1", "_seg2",
                  "_seg3", "_framed", "_frame_len0", "_base_enc_len",
-                 "_base_total", "_head_memo", "max_args")
+                 "_base_total", "_verify", "_head_memo", "max_args")
 
     def __init__(self, const_fields: Dict[str, Any]):
         """``const_fields``: every TaskSpec field except task_id, args,
@@ -136,6 +137,7 @@ class SpecTemplate:
         self._seg3 = data[i_f + 9:]
         self._base_enc_len = len(args_enc)
         self._base_total = len(data)
+        self._verify = False  # resolved lazily from config per call
         # Inline-able accepts() bound: args must be bytes shorter than
         # this (callers check `len(args) < tpl.max_args` plus the
         # deps/trace gates without a method call).
@@ -202,6 +204,27 @@ class SpecTemplate:
         d["submitted_at"] = submitted_at
         d["_tpl"] = self
         return spec
+
+    def make(self, task_id: TaskID, args: bytes,
+             submitted_at: float) -> TaskSpec:
+        """make_lazy + eager patch (the verify path: every blob checked
+        against a fresh pickle)."""
+        spec = self.make_lazy(task_id, args, submitted_at)
+        blob = spec.__dict__["_wire"] = self.patch(
+            task_id.binary(), args, submitted_at)
+        if self._verify:
+            fresh = pickle.dumps(
+                TaskSpec(task_id=task_id, args=args,
+                         submitted_at=submitted_at, **self._const),
+                protocol=_PROTO)
+            if blob != fresh:
+                raise AssertionError(
+                    "spec template verify: patched bytes != fresh pickle "
+                    f"({len(blob)} vs {len(fresh)} bytes)")
+        return spec
+
+    def set_verify(self, on: bool) -> None:
+        self._verify = bool(on)
 
 
 def build(const_fields: Dict[str, Any]) -> Optional[SpecTemplate]:

@@ -672,6 +672,13 @@ class CoreWorker:
         # under a 200-actor churn burst those boot RPCs alone saturate
         # the head process.
 
+        # Always-on sampling profiler (profiler_always_on): one
+        # idempotent daemon sampler per process, stopped in
+        # disconnect() — init()/shutdown() cycles never stack samplers.
+        from ray_tpu_torch._private import profiler as profiler_mod
+
+        profiler_mod.maybe_start_always_on()
+
     def _ensure_lease_mgr(self):
         if self._lease_mgr is None and not self._closed:
             from ray_tpu_torch._private.lease import LeaseManager
@@ -823,6 +830,12 @@ class CoreWorker:
 
         try:
             metrics_mod.stop_reporter()
+        except Exception:
+            pass
+        try:
+            from ray_tpu_torch._private import profiler as profiler_mod
+
+            profiler_mod.stop_always_on()
         except Exception:
             pass
         try:
@@ -1526,6 +1539,8 @@ class CoreWorker:
             scheduling_strategy=strategy, placement_group_id=pg_id,
             placement_group_bundle_index=bundle_index, runtime_env=None,
             arg_deps=[], trace_ctx=None))
+        if tpl is not None:
+            tpl.set_verify(bool(config.submit_template_verify))
         holder.tpl = tpl
         holder.core = self
         return tpl
@@ -1581,9 +1596,10 @@ class CoreWorker:
                 # the shape was never lease-eligible — ship template-
                 # patched BYTES and never materialize a TaskSpec at all;
                 # the GCS's batch handler builds the only spec object
-                # that ever exists.
+                # that ever exists. Skipped in verify mode so make()'s
+                # byte-equality check still covers every submission.
                 lm = self._lease_mgr or self._ensure_lease_mgr()
-                if lm is not None \
+                if lm is not None and not tpl._verify \
                         and (lm.classic_route(resources)
                              or not lm.eligible(resources,
                                                 scheduling_strategy,
@@ -1593,7 +1609,9 @@ class CoreWorker:
                                                args_blob, time.time()):
                         return self._wrap_return_refs(task_id,
                                                       num_returns, None)
-                spec = tpl.make_lazy(task_id, args_blob, time.time())
+                spec = (tpl.make(task_id, args_blob, time.time())
+                        if tpl._verify else
+                        tpl.make_lazy(task_id, args_blob, time.time()))
         if spec is None:
             spec = TaskSpec(
                 task_id=task_id,
@@ -2514,9 +2532,6 @@ def init(address=None, num_cpus=None, num_gpus=None, resources=None,
          ignore_reinit_error=False, runtime_env=None, system_config=None,
          log_to_driver=True) -> ClientContext:
     global _global_worker, _global_cluster
-    from ray_tpu_torch._private.config import refuse_unported
-
-    refuse_unported()
     with _init_lock:
         if _global_worker is not None:
             if ignore_reinit_error:

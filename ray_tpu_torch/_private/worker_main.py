@@ -159,6 +159,10 @@ class WorkerExecutor:
                 self.direct_ux.on_disconnect = self._on_direct_disconnect
             except OSError:
                 self.direct_ux = None   # unbindable path: TCP-only
+        # Set from the registration reply below; the node manager may ask
+        # for a profile or a stack dump as soon as it has registered us,
+        # before this thread has read that reply.
+        self.node_id: Optional[str] = None
         self.nm = protocol.connect(nm_address, handler=self._on_msg,
                                    name="worker-nm")
         self.nm.on_close = lambda conn: self._on_nm_closed()

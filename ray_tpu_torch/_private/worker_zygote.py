@@ -11,8 +11,8 @@ interpreter startup.
 GPU-bound workers do NOT fork from here: a CUDA context does not survive
 a fork, and the device set is read from CUDA_VISIBLE_DEVICES when the
 context is created, so they keep the classic spawn path — and have their
-own reuse pool in the node manager. The zygote imports torch with the
-package but never initializes CUDA, and sees no GPU
+own reuse pool in the node manager. The zygote imports torch (the
+package does not) but never initializes CUDA, and sees no GPU
 (CUDA_VISIBLE_DEVICES="").
 
 Protocol: one JSON object per line over a unix socket.
@@ -116,6 +116,10 @@ def main() -> None:
     # Import only — no instantiation, no threads: fork() must happen
     # from a single-threaded process.
     import ray_tpu_torch._private.worker_main  # noqa: F401
+    # The package itself loads no torch (the control plane runs without
+    # it); a CPU worker's tasks mostly do, so the zygote pays that import
+    # once for all of its children.
+    import torch  # noqa: F401
 
     global _exit_dir
 

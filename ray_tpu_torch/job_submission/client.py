@@ -63,7 +63,9 @@ class _JobManager:
 
     def __init__(self, gcs_address: str):
         self.gcs_address = gcs_address
-        session = os.environ.get("RAY_TPU_TORCH_SESSION_DIR") or \
+        from ray_tpu_torch._private.config import config
+
+        session = config.refresh_from_env("session_dir") or \
             os.path.join(tempfile.gettempdir(), "ray_tpu_torch")
         self.log_dir = os.path.join(session, "logs", "jobs")
         os.makedirs(self.log_dir, exist_ok=True)

@@ -65,7 +65,7 @@ def _ensure_built() -> str:
 
     from pathlib import Path
 
-    from ray_tpu_torch.ops._kernels import build_lock
+    from ray_tpu_torch._private.build_dir import exclusive_build_dir
 
     override = config.refresh_from_env("store_so")
     if override:
@@ -76,7 +76,7 @@ def _ensure_built() -> str:
     with _build_lock:
         if os.path.exists(so_path):
             return so_path
-        with build_lock(Path(_BUILD_DIR)):
+        with exclusive_build_dir(Path(_BUILD_DIR)):
             if not os.path.exists(so_path):
                 tmp = so_path + f".tmp.{os.getpid()}"
                 cmd = ["g++", "-O2", "-shared", "-fPIC", "-pthread",

@@ -16,9 +16,7 @@ written.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import fcntl
 import hashlib
 import os
 import shutil
@@ -28,6 +26,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 import torch
+
+from ray_tpu_torch._private.build_dir import exclusive_build_dir
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -67,18 +67,6 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-@contextlib.contextmanager
-def build_lock(build_dir: Path = BUILD_DIR):
-    """Hold the build directory's lock file (``flock``) across processes."""
-    build_dir.mkdir(parents=True, exist_ok=True)
-    with open(build_dir / ".build.lock", "a") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
-        try:
-            yield
-        finally:
-            fcntl.flock(f, fcntl.LOCK_UN)
-
-
 def build_all(names: Sequence[str] = ()) -> Dict[str, Path]:
     """Build the named sources (all of ``csrc/*.cu`` by default), one
     ``nvcc`` each, all started together. Returns name -> library path; the
@@ -87,7 +75,7 @@ def build_all(names: Sequence[str] = ()) -> Dict[str, Path]:
     names = list(names) or sorted(p.stem for p in CSRC.glob("*.cu"))
     if all(library_path(name).exists() for name in names):
         return {name: library_path(name) for name in names}
-    with build_lock():
+    with exclusive_build_dir(BUILD_DIR):
         return _build_locked(names)
 
 

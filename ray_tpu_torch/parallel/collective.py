@@ -599,8 +599,10 @@ class StoreGroup(BaseGroup):
         if self.rank == 0 and self._coord is not None:
             try:
                 self._rt.kill(self._coord)
-            # A coordinator already dead (gang death) is the expected
-            # failure here, and destroy() must never fail a teardown.
+            # raylint: disable-next=exception-swallow (best-effort reap
+            # on the deliberate-destroy path: the coordinator being
+            # already dead — gang death — is the expected failure here,
+            # and destroy() must never fail a teardown)
             except Exception:
                 pass
 
@@ -994,6 +996,9 @@ def send(tensor, dst_rank: int, group_name: str = DEFAULT_GROUP_NAME):
 
 
 def recv(shape, dtype, src_rank: int, group_name: str = DEFAULT_GROUP_NAME):
+    # raylint: disable-next=unbounded-wait (collective recv, not a
+    # socket: bounded internally by RAY_TPU_TORCH_COLLECTIVE_OP_TIMEOUT_S
+    # and unwedged early by the group's poison watcher)
     return get_group(group_name).recv(shape, dtype, src_rank)
 
 

@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 
@@ -33,7 +32,9 @@ class RuntimeContext:
     def get_assigned_resources(self) -> dict:
         """The GPUs the node manager assigned this worker, as
         ``{"GPU": n}``; empty for a CPU worker and the driver."""
-        ids = os.environ.get("RAY_TPU_TORCH_GPU_IDS", "")
+        from ray_tpu_torch._private.config import config
+
+        ids = config.refresh_from_env("gpu_ids")
         return {"GPU": float(len(ids.split(",")))} if ids else {}
 
     def get_runtime_env_string(self) -> str:

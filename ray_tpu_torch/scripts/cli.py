@@ -402,6 +402,11 @@ def cmd_profile(args) -> int:
         if not ok:
             print("no profiles captured", file=sys.stderr)
             return 1
+        # With profiler_always_on every process already samples, and the
+        # window reads its running sampler instead of starting one.
+        started = sum(1 for p in ok if p.get("sampler_started"))
+        print(f"sampler already running in {len(ok) - started} of "
+              f"{len(ok)} processes", file=sys.stderr)
         if args.format == "folded":
             out = "\n".join(profiler.folded_lines(ok)) + "\n"
             if args.output:

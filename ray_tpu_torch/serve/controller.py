@@ -25,7 +25,7 @@ from __future__ import annotations
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set
 
 CONTROLLER_NAME = "SERVE_CONTROLLER"
 _RECONCILE_PERIOD_S = 0.2
@@ -119,12 +119,14 @@ class ServeController:
         self._http_port = http_port
         self._proxies: Dict[str, dict] = {}   # node_id -> {actor, port}
         self._proxy_backoff: Dict[str, float] = {}   # node_id -> retry at
-        # One proxy reconcile at a time: __init__'s and the reconcile
-        # loop's would otherwise both see a node without a proxy and both
-        # start one; the second falls back to an ephemeral port and
-        # replaces the first in the table, which then serves its port
-        # unlisted and is never killed.
-        self._proxy_lock = threading.Lock()
+        # Nodes whose proxy a reconcile is starting right now. __init__'s
+        # reconcile and the loop's would otherwise both see a node
+        # without a proxy and both start one; the second falls back to an
+        # ephemeral port and replaces the first in the table, which then
+        # serves its port unlisted and is never killed. A reconcile
+        # claims a node here under _lock and starts its proxy outside
+        # any lock (the bounded get of its port included).
+        self._proxy_starting: Set[str] = set()
         # Long-poll state: key -> monotonically increasing version.
         self._versions: Dict[str, int] = {}
         self._change_cv = threading.Condition()
@@ -620,15 +622,8 @@ class ServeController:
         self._reconcile_proxies()
 
     def _reconcile_proxies(self):
-        with self._proxy_lock:
-            self._reconcile_proxies_locked()
-
-    def _reconcile_proxies_locked(self):
         import ray_tpu_torch
         from ray_tpu_torch.serve.ingress import HTTPProxy
-        from ray_tpu_torch.util.scheduling_strategies import (
-            NodeAffinitySchedulingStrategy,
-        )
 
         if self._http_port is None:
             return
@@ -645,38 +640,54 @@ class ServeController:
                     self._proxies.pop(nid, None)
             missing = [nid for nid in alive
                        if nid not in self._proxies
+                       and nid not in self._proxy_starting
                        and self._proxy_backoff.get(nid, 0) <= now]
+            self._proxy_starting.update(missing)
         cls = ray_tpu_torch.remote(HTTPProxy)
-        for nid in missing:
-            actor = None
-            try:
-                # Head node keeps the configured port (back-compat for
-                # clients of proxy_port()); other nodes request the same
-                # port — on a multi-host cluster it binds cleanly, on a
-                # single-host test cluster the proxy falls back to an
-                # ephemeral port discovered via bound_port().
-                actor = cls.options(
-                    scheduling_strategy=NodeAffinitySchedulingStrategy(
-                        node_id=nid, soft=True)).remote(
-                    self._http_port, system_config=self._system_config)
-                # 30 s, not the reference's 10: a worker of the port's
-                # runtime imports torch first (5.6 s on the card's host).
-                port = ray_tpu_torch.get(actor.bound_port.remote(),
-                                         timeout=30)
-            except Exception:
-                # Don't leak the half-started actor or hammer an
-                # unhealthy node every reconcile tick.
-                if actor is not None:
-                    try:
-                        ray_tpu_torch.kill(actor)
-                    except Exception:
-                        pass
-                with self._lock:
-                    self._proxy_backoff[nid] = time.time() + 15.0
-                continue
+        try:
+            for nid in missing:
+                self._start_node_proxy(cls, nid)
+        finally:
             with self._lock:
-                self._proxies[nid] = {"actor": actor, "port": port}
-                self._proxy_backoff.pop(nid, None)
+                self._proxy_starting.difference_update(missing)
+
+    def _start_node_proxy(self, cls, nid: str) -> None:
+        """Start the proxy of node ``nid``, which the caller has claimed
+        in ``_proxy_starting``, and record it, or back the node off."""
+        import ray_tpu_torch
+        from ray_tpu_torch.util.scheduling_strategies import (
+            NodeAffinitySchedulingStrategy,
+        )
+
+        actor = None
+        try:
+            # Head node keeps the configured port (back-compat for
+            # clients of proxy_port()); other nodes request the same
+            # port — on a multi-host cluster it binds cleanly, on a
+            # single-host test cluster the proxy falls back to an
+            # ephemeral port discovered via bound_port().
+            actor = cls.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    node_id=nid, soft=True)).remote(
+                self._http_port, system_config=self._system_config)
+            # 30 s, not the reference's 10: a worker of the port's
+            # runtime may import torch first (5.6 s on the card's host).
+            port = ray_tpu_torch.get(actor.bound_port.remote(),
+                                     timeout=30)
+        except Exception:
+            # Don't leak the half-started actor or hammer an
+            # unhealthy node every reconcile tick.
+            if actor is not None:
+                try:
+                    ray_tpu_torch.kill(actor)
+                except Exception:
+                    pass
+            with self._lock:
+                self._proxy_backoff[nid] = time.time() + 15.0
+            return
+        with self._lock:
+            self._proxies[nid] = {"actor": actor, "port": port}
+            self._proxy_backoff.pop(nid, None)
 
     def proxy_port(self) -> Optional[int]:
         return self._http_port

@@ -504,6 +504,9 @@ class HTTPProxy:
                 # doesn't decode a full budget for nobody.
                 if not f.cancelled() and f.exception() is None:
                     try:
+                        # raylint: disable-next=unbounded-wait (done
+                        # callback: f has already completed, result()
+                        # cannot block)
                         f.result().cancel()
                     except Exception:
                         pass

@@ -245,8 +245,10 @@ class TrainWorker:
         try:
             if collective.is_group_initialized(self.group_name):
                 collective.destroy_collective_group(self.group_name)
-        # A GangMemberDiedError here means the group being destroyed is
-        # already dead; the session shutdown below must still run.
+        # raylint: disable-next=exception-swallow (teardown path: a
+        # GangMemberDiedError here means the group we are destroying is
+        # already dead — the very condition teardown handles; the
+        # session shutdown below must still run)
         except Exception:
             pass
         session_mod._shutdown_session()
@@ -476,14 +478,16 @@ class WorkerGroup:
             try:
                 self._rt.get([w.teardown.remote() for w in self.workers],
                              timeout=10)
-            # Advisory: dead or wedged ranks are expected here, and the
-            # kill below is the real teardown.
+            # raylint: disable-next=exception-swallow (cooperative
+            # teardown is advisory: dead/wedged ranks are expected here
+            # and the unconditional kill below is the real teardown)
             except Exception:
                 pass
         for w in self.workers:
             try:
                 self._rt.kill(w)
-            # Killing a possibly-dead actor: the error is the goal state.
+            # raylint: disable-next=exception-swallow (force-kill of a
+            # possibly-already-dead actor: the error IS the goal state)
             except Exception:
                 pass
         # The group coordinator is a detached named actor: rank 0 kills it
@@ -491,12 +495,16 @@ class WorkerGroup:
         try:
             self._rt.kill(self._rt.get_actor(
                 collective._COORD_NAME_FMT.format(self.group_name)))
-        # "No such actor" (rank 0 already killed it) is the common outcome.
+        # raylint: disable-next=exception-swallow (coordinator reap:
+        # "no such actor" — rank 0 already killed it on the graceful
+        # path — is the common, correct outcome)
         except Exception:
             pass
         if self._owns_pg and self.pg is not None:
             try:
                 self._rt.util.remove_placement_group(self.pg)
-            # Best effort: a re-formed gang reserves a fresh group anyway.
+            # raylint: disable-next=exception-swallow (best-effort PG
+            # cleanup on teardown; a re-formed gang allocates a fresh
+            # PG regardless, and leaked PGs die with the job)
             except Exception:
                 pass

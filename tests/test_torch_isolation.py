@@ -159,9 +159,9 @@ print(repr((code, sorted({{m.split(".")[0] for m in sys.modules}} - {{
                          ids=["help", "up-help", "list-no-cluster"])
 def test_cli_process_loads_none_of_them(argv, tmp_path):
     """``python -m ray_tpu_torch`` loads none of the forbidden packages,
-    and no yaml until ``up`` reads a file: asking for help, and ``list``
-    with no cluster to connect to (it exits naming the ways to give
-    one)."""
+    no torch, and no yaml until ``up`` reads a file: asking for help, and
+    ``list`` with no cluster to connect to (it exits naming the ways to
+    give one)."""
     import os
 
     env = {k: v for k, v in os.environ.items()
@@ -174,10 +174,130 @@ def test_cli_process_loads_none_of_them(argv, tmp_path):
     assert "ray_tpu_torch" in loaded
     assert not [m for m in loaded if _forbidden(m)], loaded
     assert not [m for m in loaded if m in NOT_AT_IMPORT], loaded
+    assert "torch" not in loaded, loaded
     if "--help" in argv:
         assert code == 0
     else:
         assert "no cluster address" in code
+
+
+CONTROL_PLANE = ["ray_tpu_torch", "ray_tpu_torch._private.gcs",
+                 "ray_tpu_torch._private.node_manager",
+                 "ray_tpu_torch.scripts.cli", "ray_tpu_torch.dashboard.head",
+                 "ray_tpu_torch._private.lint"]
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE)
+def test_control_plane_import_loads_no_torch(module):
+    """The control plane runs without torch, as the reference's runs
+    without jax: a fresh interpreter importing the package, the GCS, the
+    node manager, the CLI, the dashboard head or the lint loads no torch
+    (nor numpy)."""
+    code = (f"import sys\nimport {module}\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    loaded = ast.literal_eval(out.strip().splitlines()[-1])
+    assert "ray_tpu_torch" in loaded
+    assert not {"torch", "numpy"} & set(loaded), loaded
+
+
+def _maps_torch(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def test_head_and_gcs_processes_load_no_torch(tmp_path):
+    """A head started by the CLI (the node manager in the head daemon, the
+    GCS in a child of its own) runs tasks, and neither process maps
+    torch. Its CPU workers may: the zygote preloads torch for them."""
+    import os
+
+    from ray_tpu_torch._private.test_utils import session_pids
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_TORCH_")}
+    env["TMPDIR"] = str(tmp_path)
+    log = open(tmp_path / "cli.log", "w")
+
+    def cli(*argv, timeout=120):
+        return subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch", *argv], cwd=ROOT,
+            env=env, stdout=log, stderr=subprocess.STDOUT, timeout=timeout)
+
+    assert cli("start", "--head", "--num-cpus", "1").returncode == 0
+    try:
+        head = int((tmp_path / "ray_tpu_torch" / "head.pid").read_text())
+        driver = (
+            "import ray_tpu_torch as rt\n"
+            "rt.init(address='auto')\n"
+            "f = rt.remote(lambda x: x + 1)\n"
+            "assert rt.get([f.remote(i) for i in range(4)], timeout=60)"
+            " == [1, 2, 3, 4]\n"
+            "rt.shutdown()\n")
+        addr = (tmp_path / "ray_tpu_torch" / "head.addr").read_text()
+        assert subprocess.run(
+            [sys.executable, "-c", driver], cwd=ROOT,
+            env=dict(env, RAY_TPU_TORCH_ADDRESS=addr.strip()), stdout=log,
+            stderr=subprocess.STDOUT, timeout=120).returncode == 0
+        gcs = []
+        for pid in session_pids(head, str(tmp_path)):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    if b"ray_tpu_torch._private.gcs" in f.read():
+                        gcs.append(pid)
+            except OSError:
+                continue
+        assert len(gcs) == 1, gcs
+        assert not _maps_torch(head)
+        assert not _maps_torch(gcs[0])
+    finally:
+        assert cli("stop").returncode == 0
+        log.close()
+
+
+_LATE_TORCH = """
+import sys
+import ray_tpu_torch as rt
+assert "torch" not in sys.modules
+rt.init(num_cpus=1)
+try:
+    assert rt.get(rt.put(b"before"), timeout=60) == b"before"
+    import torch
+    from ray_tpu_torch._private import device_objects
+    device_objects.reset_stats()
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    back = rt.get(rt.put(t), timeout=60)
+    made = rt.get(rt.remote(lambda n: torch.full((n,), 7.0)).remote(5),
+                  timeout=60)
+    st = device_objects.stats()
+    print("RESULT", repr((torch.equal(back, t), made.tolist(), st)),
+          flush=True)
+finally:
+    rt.shutdown()
+"""
+
+
+def test_device_objects_after_late_torch_import(tmp_path):
+    """A process that imports torch after ``ray_tpu_torch`` (and after a
+    first serialize, which installed no hook) still moves tensors out of
+    band: a put is staged by the tensor hook and a task's return is
+    rebuilt from its frame, not pickled in band."""
+    out = tmp_path / "out.txt"
+    with open(out, "w") as f:
+        subprocess.run([sys.executable, "-c", _LATE_TORCH], cwd=ROOT,
+                       stdout=f, stderr=subprocess.STDOUT, timeout=180,
+                       check=False)
+    text = out.read_text()
+    last = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+    assert last, text
+    last = last[-1][len("RESULT "):]
+    equal, made, st = ast.literal_eval(last)
+    assert equal and made == [7.0] * 5
+    # The put is staged out of band here (and its get is the registered
+    # tensor itself); the worker's return is rebuilt from its frame.
+    assert (st["puts"], st["local_hits"], st["rebuilds"]) == (1, 1, 1), st
 
 
 def test_scan_catches_forbidden_imports(tmp_path):

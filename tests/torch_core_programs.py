@@ -30,6 +30,15 @@ def fail(msg):
     raise ValueError(msg)
 
 
+def spin_for(seconds, value=0):
+    """Busy for ``seconds`` (a profile window sees this frame), then
+    ``value``."""
+    end = time.time() + seconds
+    while time.time() < end:
+        pass
+    return value
+
+
 def nested(modname, n):
     """A task that submits tasks: the sum of squares below ``n``."""
     rt = importlib.import_module(modname)
