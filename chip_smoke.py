@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only tune     # phases 1-5 and 18 only
     python3 chip_smoke.py --only jobs     # phases 1-5 and 19 only
     python3 chip_smoke.py --only correctness  # phases 1-5 and 20 only
+    python3 chip_smoke.py --only gaps     # phases 1-5 and 21 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -34,7 +35,9 @@ Phases, each printed on its own line, each fatal when it fails:
    The kernels' launch counts are zeroed just before and read just after.
 5. time: each kernel at the training shape, its plain version, and the
    PyTorch library call of the same function where there is one (SDPA; a
-   yardstick the port never calls).
+   yardstick the port never calls): its forward for K1, its flash
+   backend's backward op alone, on the forward's saved outputs, for K2 and
+   K3 (it computes dQ, dK and dV at once).
 6. moe-train: gpt2-125m-moe8 (``GPTConfig.preset("gpt2-125m",
    moe_experts=8, moe_capacity_factor=1.25, max_seq=1024,
    flash_attention=True)``, Switch top-1) at full width and depth, as
@@ -288,6 +291,30 @@ Phases, each printed on its own line, each fatal when it fails:
    GPU task blocks of 5 steps with the sampler running, stopped, stopped,
    running.
 
+21. gaps: the port runtime's last gaps (4 CPUs, the card's GPU). 16a's GPU
+   task first, its K1-K3 errors phase 2's. (a) Donation: a ``num_gpus=1``
+   task makes 13a's bf16 KV frame (268 MB) on the card from its seed,
+   keeps it in a module global and returns it with
+   ``_donate_result=True``; here it is got on the card bit for bit; a
+   follow-up ``num_gpus=1`` task in the same worker (same pid, or the
+   phase fails) sees the kept tensor's storage at 0 bytes and
+   ``torch.cuda.memory_allocated()`` at least the frame's size below the
+   same probe after the same run without donation. Prints the staging
+   GB/s (the task's return to the ref's readiness) beside 16c's. (b) The
+   death push: 16b's trainer cell with ``FailureConfig(max_failures=1)``;
+   after the step-3 checkpoint reached the run directory the rank's
+   process is SIGKILLed; the gang error carries the GCS's death cause
+   ("actor worker died") within one gang heartbeat plus 3 s; the trainer
+   re-forms on the freed GPU from the checkpoint; every step's loss is
+   phase 4's within 16b's tolerance, with 24/12/12 launches a step counted
+   in the rank before and after the kill. Prints the time to detection, to
+   the re-formed loop and the step ms beside phase 4's. (c) The
+   off-switches: a fresh ``init`` with every fast-path toggle off through
+   ``RAY_TPU_TORCH_*`` variables: 16a's GPU task gives phase 2's K1-K3
+   errors bit for bit, 16b's trainer phase 4's losses with 24/12/12
+   launches a step. Prints the GPU task's cold start and the step ms with
+   the toggles on and off.
+
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
 script exits 1 and prints no result.
@@ -515,6 +542,35 @@ def bound(kernel, bh, l, d, dtype, causal):
                                        else "operations")
 
 
+def sdpa_backward(q4, k4, v4, do4):
+    """The ms of SDPA's backward alone at the training shape: the
+    flash backend's forward op once, then its backward op on the saved
+    outputs, timed as ``time_ms`` times the port's kernels. The grads are
+    held against autograd's through ``scaled_dot_product_attention``, so
+    the op timed is the one SDPA's backward runs."""
+    aten = torch.ops.aten
+    scale = D ** -0.5
+    fwd = aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, True, False, scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+
+    def backward():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, out, lse, cum_q, cum_k, max_q, max_k, 0.0,
+            True, seed, offset, scale=scale)
+
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        scale=scale)
+    want = torch.autograd.grad(og, (qg, kg, vg), do4)
+    errs = [close(f"sdpa backward op {name}", g, w, 2e-2, 1e-2)
+            for name, g, w in zip(("dq", "dk", "dv"), backward(), want)]
+    ms = time_ms(backward, iters=20)
+    log(f"sdpa backward op: flash backend's, max |diff| against autograd's "
+        f"dq, dk, dv {errs}; {ms:.4f} ms")
+    return ms
+
+
 def time_kernels(fa):
     """Kernel, plain and library times at the training shape."""
     bh, dtype, causal = B * H, torch.bfloat16, True
@@ -538,18 +594,18 @@ def time_kernels(fa):
 
     # Yardsticks: PyTorch's fused attention on the same values, [B, H, L, D]
     # views of the [BH, L, D] tensors. Its forward computes what flash_fwd
-    # does; its backward computes dQ, dK and dV at once, which neither
-    # backward kernel does alone.
+    # does. Its backward computes dQ, dK and dV at once, which neither
+    # backward kernel does alone: it is the yardstick of K2 + K3, timed as
+    # they are, by calling the flash backend's backward op on the saved
+    # outputs of its forward between the two events (no autograd engine on
+    # the host in the window).
     q4, k4, v4, do4 = (x.view(B, H, L, D) for x in (q, k, v, do))
     times["flash_fwd"]["library_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
         iters=20)
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-        og, (qg, kg, vg), do4, retain_graph=True), iters=20)
+    sdpa_bwd = sdpa_backward(q4, k4, v4, do4)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        times[name]["library_ms"] = None
+        times[name]["library_ms"] = sdpa_bwd
     for name in times:
         times[name]["bound_ms"], times[name]["bound_by"] = bound(
             name, bh, L, D, dtype, causal)
@@ -5063,6 +5119,418 @@ def correctness_phase(tm, fa, run, step16_ms=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the port runtime's last gaps on the card: donation of a CUDA
+# result, the gang supervisor's GCS death push, the reference's fast-path
+# off-switches.
+
+# Every fast-path toggle of the reference that the port's runtime reads.
+GAPS_TOGGLES = (
+    "lease_enabled", "local_scheduling_enabled",
+    "local_actor_creation_enabled", "submit_spec_template_enabled",
+    "submit_batch_frames_enabled", "submit_ring_enabled",
+    "task_done_batch_enabled", "completion_ring_enabled",
+    "completion_absorb_enabled", "completion_steal_enabled",
+    "worker_completion_ring_enabled", "worker_inline_returns_enabled",
+    "worker_zygote_enabled")
+# The GCS's death cause for an actor whose worker process died.
+GAPS_DEATH_CAUSE = "actor worker died"
+GAPS_DETECT_SLACK_S = 3.0
+# How long 21b's first rank waits to be killed after its checkpoint.
+GAPS_HOLD_S = 300.0
+
+
+def gaps_make_frame():
+    """21a, in a ``num_gpus=1`` worker: 13a's bf16 KV frame from its seed on
+    the card, kept in a module global of this worker and returned; the
+    time of the return goes beside it, for the staging rate."""
+    import builtins
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    k = torch.randn(KV_FRAME_SHAPE, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    builtins._chip_smoke_kept = {"frame": k, "pid": os.getpid(),
+                                 "returned_at": time.time()}
+    return k
+
+
+def gaps_probe_frame():
+    """21a's follow-up in the same worker (the kept frame is absent from
+    any other): the kept frame's storage and the card's allocated bytes."""
+    import builtins
+
+    from ray_tpu_torch._private import device_objects as tdo
+
+    kept = builtins._chip_smoke_kept
+    torch.cuda.synchronize()
+    return {"pid": os.getpid(), "maker_pid": kept["pid"],
+            "returned_at": kept["returned_at"],
+            "storage_bytes": kept["frame"].untyped_storage().nbytes(),
+            "allocated": torch.cuda.memory_allocated(),
+            "donations": tdo.stats()["donations"]}
+
+
+def gaps_donation(rt, frame16):
+    """21a: the frame returned with ``_donate_result=True``, then without;
+    each got here on the card bit for bit, each followed by a probe in the
+    producer's worker."""
+    make = rt.remote(gaps_make_frame).options(num_gpus=1)
+    probe = rt.remote(gaps_probe_frame).options(num_gpus=1)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    want = torch.randn(KV_FRAME_SHAPE, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    runs = {}
+    for donate in (True, False):
+        ref = make.options(_donate_result=donate).remote()
+        ready, _ = rt.wait([ref], num_returns=1, timeout=300)
+        t_ready = time.time()
+        if not ready:
+            raise AssertionError("gaps-donation: the frame never arrived")
+        p = rt.get(probe.remote(), timeout=300)
+        back = rt.get(ref, timeout=300)
+        if not (back.is_cuda and back.dtype == torch.bfloat16 and
+                torch.equal(back.view(torch.uint8), want.view(torch.uint8))):
+            raise AssertionError(f"gaps-donation: the frame (donate="
+                                 f"{donate}) differs from its seed's")
+        p["staging_s"] = t_ready - p["returned_at"]
+        runs[donate] = p
+        del back, ref
+        gc_collect()
+    nbytes = want.nbytes
+    on, off = runs[True], runs[False]
+    freed = off["allocated"] - on["allocated"]
+    if not (on["pid"] == on["maker_pid"] == off["pid"] == off["maker_pid"]):
+        raise AssertionError(f"gaps-donation: the tasks ran in processes "
+                             f"{on['maker_pid']}, {on['pid']}, "
+                             f"{off['maker_pid']}, {off['pid']}")
+    if on["storage_bytes"] != 0 or off["storage_bytes"] != nbytes or \
+            off["donations"] != on["donations"] or on["donations"] < 1 or \
+            freed < nbytes:
+        raise AssertionError(f"gaps-donation: donated {on}, kept {off}; "
+                             f"{freed} B freed of {nbytes}")
+    gb = nbytes / 1e9
+    out = {"bytes": nbytes, "freed_bytes": freed,
+           "allocated_donated": on["allocated"],
+           "allocated_kept": off["allocated"],
+           "staging_gb_per_s_donated": gb / on["staging_s"],
+           "staging_gb_per_s_kept": gb / off["staging_s"],
+           "frame16_put_gb_per_s": None if frame16 is None
+           else frame16["put_gb_per_s"]}
+    beside = ("16c not run in this call" if frame16 is None else
+              f"16c's put {frame16['put_gb_per_s']:.2f} GB/s")
+    log(f"gaps-donation ok: {list(KV_FRAME_SHAPE)} bf16 ({nbytes} B) made "
+        f"on the card by a num_gpus=1 task and returned with "
+        f"_donate_result=True, got here bit for bit; the follow-up task in "
+        f"the same worker (pid {on['pid']}) sees the kept tensor's storage "
+        f"at {on['storage_bytes']} B and torch.cuda.memory_allocated() "
+        f"{on['allocated']} B, against {off['allocated']} B after the same "
+        f"run without donation: {freed / 1e6:.1f} MB freed (the frame is "
+        f"{nbytes / 1e6:.1f} MB); staging from the task's return to the "
+        f"ref's readiness {out['staging_gb_per_s_donated']:.2f} GB/s "
+        f"donated, {out['staging_gb_per_s_kept']:.2f} GB/s kept, {beside}; "
+        f"card: {gpu_line()}")
+    return out
+
+
+def gaps_gang_loop(config):
+    """21b: 16b's rank loop (``runtime_gang_loop``), with the rank's pid in
+    a side file and each report stamped with the time the attempt's loop
+    began. A first attempt waits to be killed after its checkpoint."""
+    from ray_tpu_torch import train as rt_train
+
+    side = config["side_dir"]
+    tmp = os.path.join(side, "rank.pid.tmp")
+    with open(tmp, "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(tmp, os.path.join(side, "rank.pid"))
+    fresh = rt_train.get_checkpoint() is None
+    t_loop = time.time()
+    report = rt_train.report
+
+    def stamped(metrics, checkpoint=None):
+        out = report(dict(metrics, t_loop=t_loop, pid=os.getpid()),
+                     checkpoint=checkpoint)
+        if fresh and metrics["step"] == GANG_CKPT_STEP:
+            open(os.path.join(side, "checkpointed"), "w").close()
+            time.sleep(GAPS_HOLD_S)
+            raise AssertionError("gaps-gang: the rank was never killed")
+        return out
+
+    rt_train.report = stamped
+    try:
+        runtime_gang_loop(config)
+    finally:
+        rt_train.report = report
+
+
+def gaps_death_push(rt, fa, run, tol):
+    """21b: 16b's trainer cell with ``FailureConfig(max_failures=1)``; the
+    rank SIGKILLed after its step-3 checkpoint reached the run directory.
+    The gang error carries the GCS's death cause within a heartbeat plus
+    slack; the trainer re-forms on the freed GPU from the checkpoint."""
+    import signal
+    import threading
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch._private.config import config as tconfig
+    from ray_tpu_torch.train import worker_group as wg
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    heartbeat = float(tconfig.gang_heartbeat_s)
+    per_step = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    # Whichever sees the death first: the supervisor (the GCS's push, or
+    # a ping) or the trainer's poll of the ranks.
+    notes, kill = [], {}
+    note_dead, poll = wg.WorkerGroup._note_dead, wg.WorkerGroup.poll
+
+    def noted(self, rank, reason):
+        # The push's reason is the GCS's death cause itself; a ping's
+        # names the runtime's error around it.
+        how = "GCS push" if reason == GAPS_DEATH_CAUSE else "ping"
+        notes.append((time.time(), f"supervisor ({how})", reason))
+        return note_dead(self, rank, reason)
+
+    def polled(self):
+        states = poll(self)
+        for st in states:
+            if st["state"] == "dead":
+                notes.append((time.time(), "poll", st["error"] or ""))
+        return states
+
+    with tempfile.TemporaryDirectory(
+            dir=os.path.abspath("chiprun_out")) as storage:
+        side = os.path.join(storage, "side")
+        os.makedirs(side)
+        run_dir = os.path.join(storage, "gaps-gang")
+
+        def checkpointed():
+            return os.path.exists(os.path.join(side, "checkpointed")) and \
+                os.path.isdir(run_dir) and any(
+                    d.startswith("checkpoint_") for d in os.listdir(run_dir))
+
+        def killer():
+            end = time.time() + GAPS_HOLD_S
+            while time.time() < end and not kill.get("stop"):
+                if checkpointed():
+                    pid = int(open(os.path.join(side, "rank.pid")).read())
+                    kill["t"], kill["pid"] = time.time(), pid
+                    os.kill(pid, signal.SIGKILL)
+                    return
+                time.sleep(0.02)
+
+        trainer = rt_train.TorchDistTrainer(
+            gaps_gang_loop,
+            train_loop_config={"steps": steps, "side_dir": side},
+            scaling_config=rt_train.ScalingConfig(num_workers=1,
+                                                  use_gpu=True),
+            run_config=rt_train.RunConfig(
+                name="gaps-gang", storage_path=storage,
+                failure_config=rt_train.FailureConfig(max_failures=1)),
+            backend="torch_dist", runtime=rt)
+        th = threading.Thread(target=killer, daemon=True,
+                              name="gaps-killer")
+        wg.WorkerGroup._note_dead, wg.WorkerGroup.poll = noted, polled
+        fa.reset_launches()
+        th.start()
+        try:
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            fit_s = time.perf_counter() - t0
+        finally:
+            wg.WorkerGroup._note_dead, wg.WorkerGroup.poll = note_dead, poll
+            kill["stop"] = True
+            th.join(5)
+    here = {k.symbol: k.launches for k in fa.KERNELS}
+    if any(here.values()):
+        raise AssertionError(f"gaps-gang: the driver launched {here}")
+    if "t" not in kill:
+        raise AssertionError("gaps-gang: the rank was never killed")
+    if not result.ok or result.num_restarts != 1:
+        raise AssertionError(f"gaps-gang: fit {result.error}, "
+                             f"{result.num_restarts} restarts")
+    notes.sort()
+    noted = [n for n in notes if n[1].startswith("supervisor")]
+    detect_s = noted[0][0] - kill["t"] if noted else None
+    seen_s = notes[0][0] - kill["t"]
+    reason = result.restart_reasons[0]
+    if detect_s is None or detect_s > heartbeat + GAPS_DETECT_SLACK_S or \
+            GAPS_DEATH_CAUSE not in reason:
+        raise AssertionError(f"gaps-gang: the gang error {detect_s} s after "
+                             f"the kill, notes {notes}, restart {reason}")
+    hist = result.metrics_history
+    first = [m for m in hist if m["pid"] == kill["pid"]]
+    second = [m for m in hist if m["pid"] != kill["pid"]]
+    if [m["step"] for m in first] != list(range(GANG_CKPT_STEP + 1)) or \
+            [m["step"] for m in second] != list(
+                range(GANG_CKPT_STEP + 1, steps)):
+        raise AssertionError(f"gaps-gang: steps {[m['step'] for m in first]}"
+                             f" then {[m['step'] for m in second]}")
+    if second[0]["cuda_visible_devices"] != first[0][
+            "cuda_visible_devices"]:
+        raise AssertionError(f"gaps-gang: re-formed on "
+                             f"{second[0]['cuda_visible_devices']}")
+    for attempt, start in ((first, 0), (second, GANG_CKPT_STEP + 1)):
+        for m in attempt:
+            want = {k: v * (m["step"] + 1 - start)
+                    for k, v in per_step.items()}
+            if m["launches"] != want:
+                raise AssertionError(f"gaps-gang: step {m['step']} counted "
+                                     f"{m['launches']} in the rank, not "
+                                     f"{want}")
+    err = max(abs(m["loss"] - run.losses[m["step"]]) for m in hist)
+    if err > tol:
+        raise AssertionError(f"gaps-gang: losses {[m['loss'] for m in hist]}"
+                             f" vs phase 4's {run.losses} (tol {tol})")
+    reform_s = second[0]["t_loop"] - kill["t"]
+    step1 = statistics.median(m["s"] for m in first[WARMUP_STEPS:]) * 1e3
+    step2 = statistics.median(m["s"] for m in second[1:]) * 1e3
+    out = {"detect_s": detect_s, "detected_by": noted[0][1],
+           "first_seen_s": seen_s, "first_seen_by": notes[0][1],
+           "reform_s": reform_s, "reason": reason,
+           "loss_err": err, "tol": tol, "step_ms_before": step1,
+           "step_ms_after": step2, "phase4_step_ms": run.step_ms,
+           "launches_per_step": per_step, "fit_s": fit_s,
+           "steps_ms": [round(m["s"] * 1e3, 2) for m in hist]}
+    log(f"gaps-gang ok: TorchDistTrainer on runtime=ray_tpu_torch, 1 NCCL "
+        f"rank in a num_gpus=1 worker, FailureConfig(max_failures=1): the "
+        f"rank (pid {kill['pid']}) SIGKILLed after its step-{GANG_CKPT_STEP}"
+        f" checkpoint; the {notes[0][1]} saw it first, {seen_s:.3f} s after "
+        f"the kill; the {noted[0][1]} recorded the gang error "
+        f"{detect_s:.3f} s after it (bound {heartbeat} s heartbeat + "
+        f"{GAPS_DETECT_SLACK_S} s), "
+        f"the gang error: {reason!r}; re-formed on the freed GPU "
+        f"(CUDA_VISIBLE_DEVICES={second[0]['cuda_visible_devices']}) from "
+        f"the checkpoint, its loop began {reform_s:.2f} s after the kill; "
+        f"losses of steps 0-{steps - 1} = phase 4's within {err:.3e} (tol "
+        f"{tol:.1e}); 24/12/12 launches a step in the rank before and after")
+    log(f"gaps-gang step_ms {step1:.2f} before the kill, {step2:.2f} after "
+        f"(steps {out['steps_ms']}), phase 4 {run.step_ms:.2f} ms; fit "
+        f"{fit_s:.1f} s; card: {gpu_line()}")
+    return out
+
+
+@contextlib.contextmanager
+def gaps_toggles_off():
+    """Every fast-path toggle off through its ``RAY_TPU_TORCH_*`` variable
+    (the workers inherit it) and in this process's registry, which read
+    the variables at import; both back as they were after."""
+    from ray_tpu_torch._private.config import config as tconfig
+
+    names = {k: "RAY_TPU_TORCH_" + k.upper() for k in GAPS_TOGGLES}
+    old_env = {v: os.environ.get(v) for v in names.values()}
+    old = {k: tconfig.get(k) for k in GAPS_TOGGLES}
+    for k, var in names.items():
+        os.environ[var] = "0"
+        tconfig.refresh_from_env(k)
+    try:
+        yield
+    finally:
+        for var, v in old_env.items():
+            if v is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = v
+        for k, v in old.items():
+            tconfig.set(k, v)
+
+
+def gaps_gpu_probe(rt, ktol, label):
+    """16a's GPU task: K1-K3 against their plain versions at the training
+    shape with the kernel tolerances ``ktol``, in a ``num_gpus=1`` worker;
+    its result holds its cold start (``spawn_ms``)."""
+    probe = rt.remote(runtime_gpu_probe).options(num_gpus=1)
+    t_submit = time.time()
+    p = rt.get(probe.remote(t_submit, ktol), timeout=300)
+    want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    if p["device_count"] != 1 or p["launches"] != want:
+        raise AssertionError(f"gaps-{label}: GPU task {p}")
+    return p
+
+
+def gaps_off_switches(tm, fa, run, tol, ktol, errors, on):
+    """21c: a fresh ``init`` with every fast-path toggle off: 16a's GPU
+    task gives phase 2's errors bit for bit, 16b's trainer phase 4's
+    losses with 24/12/12 launches a step."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as tworker
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    per_step = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    with gaps_toggles_off():
+        rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+        try:
+            w, nm = tworker.global_worker(), tworker._global_cluster.nm
+            if w._lease_mgr is not None or nm._zygotes or \
+                    w._comp_ring_enabled:
+                raise AssertionError("gaps-off: a fast path is still on")
+            p = gaps_gpu_probe(rt, ktol, "off")
+            if p["errors"] != errors or p["errors"] != on["errors"]:
+                raise AssertionError(f"gaps-off: K1-K3 errors {p['errors']}"
+                                     f", toggles on {on['errors']}, phase 2 "
+                                     f"{errors}")
+            with tempfile.TemporaryDirectory(
+                    dir=os.path.abspath("chiprun_out")) as storage:
+                result = runtime_fit(rt, fa, storage)
+        finally:
+            rt.shutdown()
+    hist = result.metrics_history
+    err = max(abs(m["loss"] - run.losses[m["step"]]) for m in hist)
+    last = hist[-1]
+    want = {k: v * steps for k, v in per_step.items()}
+    if len(hist) != steps or err > tol or last["launches"] != want:
+        raise AssertionError(f"gaps-off: losses {[m['loss'] for m in hist]}"
+                             f" vs {run.losses} (tol {tol}), launches "
+                             f"{last['launches']}")
+    step_ms = statistics.median(m["s"] for m in hist[WARMUP_STEPS:]) * 1e3
+    out = {"cold_start_ms": p["spawn_ms"], "errors": p["errors"],
+           "loss_err": err, "step_ms": step_ms,
+           "launches": last["launches"]}
+    log(f"gaps-off ok: {len(GAPS_TOGGLES)} fast-path toggles off through "
+        f"RAY_TPU_TORCH_* before init (no lease manager, no zygote, no "
+        f"completion ring): the num_gpus=1 task's K1-K3 at [{B}, {L}, {H}, "
+        f"{D}] bf16 causal = phase 2's errors bit for bit {p['errors']}; "
+        f"the trainer's losses = phase 4's within {err:.3e} (tol "
+        f"{tol:.1e}), launches {last['launches']} in {steps} steps")
+    log(f"gaps-off GPU task cold start {p['spawn_ms']:.0f} ms off, "
+        f"{on['spawn_ms']:.0f} ms on; step_ms {step_ms:.2f} off, "
+        f"{on['step_ms']:.2f} on (21b before the kill), phase 4 "
+        f"{run.step_ms:.2f} ms; card: {gpu_line()}")
+    return out
+
+
+def gaps_phase(tm, fa, run, ktol, errors, frame16=None):
+    """Phase 21: donation, the death push and the off-switches on the port's
+    runtime (4 CPUs, the card's GPU). ``ktol``: phase 2's bf16 kernel
+    tolerances; ``errors``: phase 2's errors at the training shape."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    tol = loss_tolerance(tm, fa, run, "gaps phase-4 again")
+    out = {}
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        on = gaps_gpu_probe(rt, ktol, "on")
+        if on["errors"] != errors:
+            raise AssertionError(f"gaps-on: K1-K3 errors {on['errors']} vs "
+                                 f"phase 2's {errors}")
+        out["donation"] = gaps_donation(rt, frame16)
+        gc_collect()
+        out["death_push"] = gaps_death_push(rt, fa, run, tol)
+    finally:
+        rt.shutdown()
+    gc_collect()
+    out["off"] = gaps_off_switches(
+        tm, fa, run, tol, ktol, errors,
+        {"errors": on["errors"], "spawn_ms": on["spawn_ms"],
+         "step_ms": out["death_push"]["step_ms_before"]})
+    out["on_cold_start_ms"] = on["spawn_ms"]
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"gaps phase ok in {out['phase_s']:.1f} s")
+    log("gaps metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -5073,7 +5541,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
     ap.add_argument("--only", choices=["sharded", "runtime", "serve", "tune",
-                                       "jobs", "correctness"],
+                                       "jobs", "correctness", "gaps"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -5165,9 +5633,9 @@ def main() -> int:
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
             f"{t['library_ms']}, {launches[name]} launches in the train run")
     k23 = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
-    log(f"time sdpa backward (dQ, dK, dV at once, yardstick): "
-        f"{sdpa_bwd:.4f} ms against K2 + K3 {k23:.4f} ms; train step "
-        f"{step_ms:.2f} ms")
+    log(f"time sdpa backward op alone (dQ, dK, dV at once, the K2 and K3 "
+        f"rows' library_ms): {sdpa_bwd:.4f} ms against K2 + K3 {k23:.4f} "
+        f"ms; train step {step_ms:.2f} ms; card: {card}")
     torch.cuda.empty_cache()
 
     if args.only == "sharded":
@@ -5225,6 +5693,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "gaps":
+        gaps = gaps_phase(tm, fa, run, bf16, errors)
+        for row in rows:
+            row["gaps_launches"] = gaps["death_push"]["launches_per_step"][
+                row["name"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
@@ -5269,7 +5749,11 @@ def main() -> int:
     gc_collect()
     correct = correctness_phase(tm, fa, run,
                                 step16_ms=runtime["train"]["step_ms"])
+    gc_collect()
+    gaps = gaps_phase(tm, fa, run, bf16, errors, frame16=runtime["frame"])
     for row in rows:
+        row["gaps_launches"] = gaps["death_push"]["launches_per_step"][
+            row["name"]]
         row["correctness_launches"] = correct["modes"]["launches"][
             row["name"]]
         row["job_launches"] = jobs["workflow"]["launches_per_step"][

@@ -8,6 +8,25 @@ blob at node start. The port's copy of ``ray_tpu/_private/config.py``: the
 runtime's knobs and those of the port's serving tier and gang trainer,
 under their reference names, with the port's own prefix, so that neither
 runtime reads the other's variables.
+
+Every fast-path toggle of the reference is here with its default (on), and
+each selects the reference's off-branch: ``RAY_TPU_TORCH_<KNOB>=0`` before
+``init`` (workers inherit the variable) turns one fast path off.
+
+Knobs of the reference left out, each because nothing of the reference's
+code reads it (its name appears only where it is defined, or as a
+parameter or a word of a docstring, never as ``config.<name>``):
+``actor_creation_min_workers``, ``default_max_retries``,
+``get_timeout_poll_ms``, ``log_dir``, ``log_to_driver`` (a parameter of
+``CoreWorker``/``connect``, not a knob read), ``max_direct_call_object_size``
+(named in a docstring only), ``maximum_gcs_dead_node_cache``,
+``object_store_dir``, ``object_store_eviction``, ``object_store_memory``
+(a parameter of ``init``, the node daemon and the cluster launcher, not a
+knob read), ``scheduler_spread_threshold``, ``task_events_max_buffer``,
+``task_retry_delay_ms``, ``worker_lease_timeout_s`` and
+``tpu_chips_per_host``. The reference's ``tpu_topology`` and
+``tpu_worker_idle_timeout_s`` are ``gpu_topology`` and
+``gpu_worker_idle_timeout_s`` here (GPUs take the place of TPU chips).
 """
 
 from __future__ import annotations
@@ -188,17 +207,54 @@ _d("max_lineage_reconstructions", 3,
    "(reference: object_recovery_manager.h:41 + task_manager resubmit).")
 
 # --- local-first scheduling (node-manager lease grants) ---------------------
-# The reference's fast paths are always on in the port, without their A/B
-# toggles: local-first leases and actor creation, spec templates, batched
-# submit and completion frames, the shm submit/completion rings, the
-# completion absorb split with work stealing, inline returns, and CPU
-# workers forked from zygotes.
+# Every fast path is on by default; each toggle below selects the
+# reference's off-branch (RAY_TPU_TORCH_<KNOB>=0), the baseline its A/B
+# tests compare with.
+_d("lease_enabled", True,
+   "Stream same-shape tasks directly to leased workers, bypassing the "
+   "GCS scheduler on the hot path (reference: "
+   "core_worker/transport/direct_task_transport.h:75 lease reuse).")
+_d("local_scheduling_enabled", True,
+   "Bottom-up local-first task scheduling (reference: "
+   "raylet/scheduling/policy/hybrid_scheduling_policy.h:50): a caller's "
+   "own node manager grants worker leases from its local free-resource "
+   "ledger without touching the GCS lock; the GCS is informed "
+   "asynchronously (resource deltas riding heartbeats) and is consulted "
+   "synchronously only on spillback. Off = fully centralized: every task "
+   "placement serializes through the GCS scheduler, and the worker-lease "
+   "direct transport is disabled with it.")
+_d("local_actor_creation_enabled", True,
+   "Decentralized actor creation: the driver asks its OWN node manager "
+   "to place eligible actors (no PG/affinity/name/GPU/runtime_env) from "
+   "the node's local ledger, and the GCS learns of the placement "
+   "asynchronously (actor_placed). Declines spill back to the classic "
+   "GCS-scheduled creation path. Off = every actor creation serializes "
+   "through the central scheduler.")
 _d("local_lease_backoff_s", 1.0,
    "After the GCS signals classic-queue pressure (revoke_local_lease), "
    "the node manager declines overlapping local grants for this long so "
    "spilled-back work drains through the fair central queue first.")
 
 # --- driver submit fast path (spec templates / batch frames / shm ring) -----
+_d("submit_spec_template_enabled", True,
+   "Pre-serialized task-spec templates: a RemoteFunction freezes its "
+   "constant TaskSpec fields into a pickled skeleton once, and each "
+   "submission patches only the variable slots (task id, args blob, "
+   "submit time) into a copy of the bytes. Off = every submission "
+   "builds and pickles its spec from scratch.")
+_d("submit_batch_frames_enabled", True,
+   "Multi-spec submit framing end-to-end: driver->GCS classic-path "
+   "submissions coalesce into submit_task_batch frames of pre-pickled "
+   "spec blobs, and lease-path dispatch ships lease_run_tasks_b blob "
+   "batches instead of re-pickling every spec inside the frame "
+   "envelope. Off = one frame per spec (submit_task / submit_tasks / "
+   "lease_run_tasks).")
+_d("submit_ring_enabled", True,
+   "Shared-memory submit ring to the same-node node manager: classic-"
+   "path, dep-free submissions become a template-patched blob appended "
+   "to a per-client SPSC ring the NM drains and relays to the GCS in "
+   "batches. Needs batch frames; x86-64 only. Off = the socket batch "
+   "path.")
 _d("submit_template_verify", False,
    "Template correctness mode: every template-patched spec blob is "
    "compared against a fresh pickle.dumps of an equivalently "
@@ -212,6 +268,18 @@ _d("submit_ring_bytes", 4 * 1024 * 1024,
    "before ring-full spills to the socket path.")
 
 # --- worker turnaround fast path (inline returns / batched completions) ----
+_d("worker_inline_returns_enabled", True,
+   "In-band small-object returns: a result whose framed serialization "
+   "is OOB-free and at or under worker_inline_return_max skips the "
+   "store put and ships as a blob inside the completion message. Off = "
+   "every return pays a store put and every get() a store read.")
+_d("task_done_batch_enabled", True,
+   "Batched completion framing end-to-end: workers coalesce classic-"
+   "path task_done notifies into task_done_batch frames of pre-pickled "
+   "records (flushed the moment the worker's queue empties), the node "
+   "manager relays the blobs to the GCS without unpickling, and the GCS "
+   "processes the batch under one lock acquisition. Off = one task_done "
+   "notify per task.")
 _d("worker_inline_return_max", 8192,
    "Largest framed result (bytes) that may travel in-band. Results "
    "over it — and ALL results carrying pickle-5 out-of-band buffers "
@@ -236,6 +304,30 @@ _d("task_done_flush_slack_s", 0.002,
    "Queue-empty still flushes immediately — a lone task never waits.")
 
 # --- driver completion ingestion fast path (absorb split / shm ring) -------
+_d("completion_ring_enabled", True,
+   "Shared-memory completion ring from the same-node node manager: the "
+   "NM relays classic-path task_done_batch record blobs into a "
+   "per-driver SPSC ring (besides the authoritative GCS relay) and the "
+   "driver's consumer thread absorbs them locally, so wave get()/wait() "
+   "resolves without a GCS round trip. x86-64 only. Off = the GCS path "
+   "alone.")
+_d("completion_absorb_enabled", True,
+   "Split completion absorption from sending on the driver: leased "
+   "workers ship lease_tasks_done_b frames of pre-pickled per-record "
+   "blobs, the lease conn thread only parks the raw frame, and a "
+   "dedicated rtpu-completion-absorb executor unpickles and absorbs. "
+   "Off = workers send the lease_tasks_done dict frame and the conn "
+   "thread absorbs inline.")
+_d("completion_steal_enabled", True,
+   "Parallel wave collection: a get()/wait() caller about to block "
+   "drains the completion ingest queue on its own thread. Off = callers "
+   "park on the completion event and only the absorb executor drains.")
+_d("worker_completion_ring_enabled", True,
+   "Worker->driver shm completion segments: a same-node leased worker "
+   "appends its lease-completion record blobs directly into a "
+   "per-worker SPSC segment beside the caller driver's completion ring. "
+   "Needs the completion ring; x86-64 only. Off = the socket "
+   "lease_tasks_done_b path.")
 _d("completion_ring_bytes", 4 * 1024 * 1024,
    "Data capacity of the per-driver completion ring. At ~300 bytes "
    "per small-return completion record the default holds ~13k "
@@ -259,6 +351,11 @@ _d("lease_report_flush_ms", 100,
    "Batch interval for reporting lease-task completions (object "
    "locations + lineage specs) to the GCS.")
 
+_d("worker_zygote_enabled", True,
+   "Fork CPU workers from a pre-imported zygote process instead of a "
+   "fresh python interpreter per spawn. GPU workers always use the "
+   "classic spawn path (a CUDA context does not survive a fork). Off = "
+   "every worker is spawned.")
 _d("worker_zygote_count", 4,
    "Fork-servers per node manager. One zygote serializes spawns behind "
    "a single ~10-30ms fork conversation (fork of a torch-preloaded image "
@@ -457,6 +554,13 @@ _d("serve_ingress_stream_item_timeout_s", 120.0,
    "replica generator surfaces as a terminated stream, not a "
    "forever-open socket.")
 
+_d("serve_handle_stats_rpc", False,
+   "Legacy handle routing: issue two blocking stats.remote() probes per "
+   "request for power-of-two choices. Default off: handles route on "
+   "per-replica loads pushed over the controller's long-poll channel "
+   "(plus local optimistic in-flight deltas), zero hot-path RPCs. Kept "
+   "as the A/B baseline. Env: RAY_TPU_TORCH_SERVE_HANDLE_STATS_RPC.")
+
 # --- serve fault tolerance -------------------------------------------------
 _d("serve_request_max_migrations", 3,
    "How many times one admitted request may be migrated to another "
@@ -498,6 +602,10 @@ _d("lockdep_enabled", False,
    "variable. Env: RAY_TPU_TORCH_LOCKDEP_ENABLED.")
 
 # --- logging ----------------------------------------------------------------
+_d("log_follow_interval_s", 1.0,
+   "Poll interval of `ray_tpu_torch logs -f` / state.get_log(follow=True): "
+   "each tick re-reads every matched log file from its byte-offset "
+   "cursor (tail -f semantics over the agent fan-in).")
 _d("usage_stats_enabled", True,
    "Anonymous usage-stats reporting toggle "
    "(RAY_TPU_TORCH_USAGE_STATS_ENABLED=0 opts out, matching the reference's "

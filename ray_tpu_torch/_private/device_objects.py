@@ -52,8 +52,21 @@ first serialize once torch is loaded in the process (``maybe_install``),
 as the reference's does once jax is: no tensor can exist before then, and
 the control plane (GCS, node manager, CLI, dashboard head) never loads
 torch at all. This module imports torch only inside the calls that handle
-a tensor. Not ported: donation (``_donate_result``); the port's runtime
-refuses the option.
+a tensor.
+
+* **donation** — a task submitted with ``_donate_result=True`` hands its
+  returned tensor over: once every return slot is staged into the arena,
+  ``note_return(..., donate=True)`` releases the tensor's storage
+  (``untyped_storage().resize_(0)``, torch's counterpart of JAX's
+  ``Array.delete()``), counted in ``donations``, and does not register it
+  for same-process gets. Two differences from the reference follow from
+  torch. A storage can back many tensors, where a JAX array owns its
+  buffer: only a tensor that spans its whole storage (offset 0, the
+  storage's byte size) is donated, since releasing the storage of a view
+  would empty every other view of it; any other tensor is left alone
+  (and registered as without donation). And a CUDA storage's memory goes
+  back to PyTorch's caching allocator, not to the driver:
+  ``torch.cuda.memory_allocated()`` falls, ``nvidia-smi`` does not.
 """
 
 from __future__ import annotations
@@ -78,6 +91,7 @@ _stats = {
     "host_materializations": 0,  # host copies beyond the arena slab
     "rebuilds": 0,               # tensors rebuilt from a frame (gets)
     "local_hits": 0,             # same-process gets by reference
+    "donations": 0,              # returned tensors whose storage was released
 }
 
 _install_lock = threading.Lock()
@@ -146,6 +160,7 @@ def frame(t: torch.Tensor):
     JSON header ``load_tensor`` reads, the tensor's bytes as a host
     uint8 numpy array, and how many host copies making it took (one for a
     CUDA tensor, one more for a non-contiguous one)."""
+    import numpy as np
     import torch
 
     header = json.dumps({
@@ -161,7 +176,11 @@ def frame(t: torch.Tensor):
     if t.device.type == "cuda":
         t = t.cpu()
         copies += 1
-    return header, t.reshape(-1).view(torch.uint8).numpy(), copies
+    # numpy's view through DLPack, not ``Tensor.numpy()``: the latter marks
+    # the storage as not resizable for good, and donation releases a
+    # returned tensor's storage by resizing it.
+    raw = np.from_dlpack(t.reshape(-1).view(torch.uint8))
+    return header, raw, copies
 
 
 def reduce_tensor(obj: Any) -> Optional[tuple]:
@@ -275,11 +294,44 @@ def core_lookup_local(core, oid_bytes: bytes) -> Optional[torch.Tensor]:
     return t
 
 
-def note_return(core, oid_bytes: bytes, value: Any) -> None:
-    """Post-staging hook for task and actor returns: register the tensor
-    for same-process gets. (No donation: the port's runtime refuses
-    ``_donate_result``.)"""
-    core_note_put(core, oid_bytes, value)
+def donatable(value: Any) -> bool:
+    """A tensor whose storage holds exactly its own bytes (offset 0, the
+    storage's byte size): releasing that storage frees no other tensor's
+    data than views of the whole tensor itself."""
+    return (_is_tensor(value) and value.storage_offset() == 0
+            and value.untyped_storage().nbytes()
+            == value.numel() * value.element_size())
+
+
+def note_return(core, oid_bytes: bytes, value: Any, donate: bool) -> None:
+    """Post-staging hook for task and actor returns. Registers the tensor
+    for same-process gets — or, under ``_donate_result``, releases its
+    storage now that the arena holds the only copy (see the module
+    docstring: a tensor that is a view of a larger storage is registered,
+    never donated). A tensor returned in two slots is released at the
+    first and left as it is at the second."""
+    if not _is_tensor(value) or not enabled():
+        return
+    if donate and value.numel() and not value.untyped_storage().nbytes():
+        return   # released already (the same tensor in an earlier slot)
+    if not (donate and donatable(value)):
+        core_note_put(core, oid_bytes, value)
+        return
+    if value.device.type == "cuda":
+        import torch
+
+        # Synchronize, not record_stream: staging copied the tensor to
+        # the host with a blocking copy on the current stream, but
+        # kernels queued on that stream after the producer's (by the
+        # caller, or another thread) may still read the storage. Once
+        # the stream has drained, the caching allocator may hand the
+        # block to the next tensor.
+        torch.cuda.current_stream(value.device).synchronize()
+    try:
+        value.untyped_storage().resize_(0)
+    except Exception:
+        return   # a storage torch cannot resize (numpy's, say): kept
+    _bump("donations")
 
 
 # ------------------------------------------------------------- the hook

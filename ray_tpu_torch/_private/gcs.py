@@ -1113,6 +1113,22 @@ class GcsServer:
                 self._enqueue_task(spec)
             self._try_schedule()
 
+    def _h_submit_tasks(self, conn: protocol.Conn,
+                        specs: List[TaskSpec], msg_id):
+        """Batched submission (the lease manager's fallback wave with
+        batch frames off): one lock acquisition + one scheduling pass per
+        batch, so a 100k-task burst drains in hundreds of handler
+        invocations instead of 100k — the probe RPC queued behind it
+        waits milliseconds, not seconds."""
+        with self._sched_lock:
+            with self._obj_lock:
+                for spec in specs:
+                    spec.retries_left = spec.max_retries
+                    self._retain_spec_locked(spec)
+                    self._pin_task_args(spec)
+                    self._enqueue_task(spec)
+            self._try_schedule()
+
     def _h_submit_task_batch(self, conn: protocol.Conn,
                              blobs: List[bytes], msg_id):
         """Batched submission of PRE-PICKLED spec blobs — the frame the

@@ -202,6 +202,7 @@ class LeaseManager:
         # one submit_task_batch frame per _CLASSIC_BATCH (or on
         # get()/wait() entry / the flush loop); the lease dispatch path
         # ships lease_run_tasks_b blob batches the same way.
+        self._batch_frames = bool(config.submit_batch_frames_enabled)
         self._classic_buf: List[bytes] = []
         # Deferred blob-route submissions: the caller thread appends
         # (template, tid, args, t) tuples — the absolute minimum — and
@@ -219,7 +220,9 @@ class LeaseManager:
         # cannot fence on weaker memory models (arm64).
         import platform
 
-        self._ring_enabled = platform.machine() in ("x86_64", "AMD64")
+        self._ring_enabled = (self._batch_frames
+                              and bool(config.submit_ring_enabled)
+                              and platform.machine() in ("x86_64", "AMD64"))
         # In-flight local lease requests awaiting the NM's deferred reply
         # (deadline-bounded by _check_local_waits on the flush loop).
         self._local_waits: List[dict] = []
@@ -229,21 +232,31 @@ class LeaseManager:
         # path below becomes the spillback. Pre-dial the NM so the hot
         # path never blocks on a connect.
         self._local_nm_addr: Optional[str] = None
-        try:
-            addr = worker._own_nm_address()
-            if addr:
-                worker.nm_conn(addr)
-                self._local_nm_addr = addr
-        except Exception:
-            pass   # no NM reachable: GCS-brokered grants only
+        if bool(getattr(config, "local_scheduling_enabled", True)):
+            try:
+                addr = worker._own_nm_address()
+                if addr:
+                    worker.nm_conn(addr)
+                    self._local_nm_addr = addr
+            except Exception:
+                pass   # no NM reachable: GCS-brokered grants only
         # Completion ingestion fast path (SCALE_r10 stage 1): the lease
         # conn thread parks raw lease_tasks_done_b frames here (lock-free
         # deque) and the absorb executor — or a get()/wait() caller
         # work-stealing via steal_absorb (stage 3) — does the unpickle /
         # inline insert / wakeup / decref accounting.
         self._ingest: collections.deque = collections.deque()
-        self._absorb_exec = concurrent.futures.ThreadPoolExecutor(
+        self._absorb_enabled = bool(config.completion_absorb_enabled)
+        self._steal = bool(config.completion_steal_enabled)
+        # Worker->driver shm completion segments: same-node
+        # leased workers append their completion blobs straight into a
+        # per-worker segment next to our completion ring, skipping the
+        # lease conn. Advertised per-lease in _install_lease once the
+        # main ring is active; absorbed via ring_absorb.
+        self._worker_ring = bool(config.worker_completion_ring_enabled)
+        self._absorb_exec = (concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="rtpu-completion-absorb")
+            if self._absorb_enabled else None)
         # Lease acquisition dials node managers / workers (blocking), so it
         # runs here — never on a conn's serve thread.
         self._exec = concurrent.futures.ThreadPoolExecutor(
@@ -370,7 +383,7 @@ class LeaseManager:
         landing take the scheduled path — always correct, just not
         direct. All reads are GIL-atomic snapshots; staleness only costs
         one spec the slower trip."""
-        if self._closed:
+        if not self._batch_frames or self._closed:
             return False
         ent = self._shape_keys.get(id(resources))
         if ent is None or ent[0] is not resources:
@@ -387,8 +400,8 @@ class LeaseManager:
         Returns False (caller must notify the GCS itself, single-spec
         frame on its own conn) for dep-carrying specs — their pin-
         before-decref ordering relies on same-conn FIFO with the
-        refcount flush."""
-        if self._closed or spec.arg_deps:
+        refcount flush — and when batch framing is off."""
+        if not self._batch_frames or self._closed or spec.arg_deps:
             return False
         return self.submit_classic_blob(spec_wire(spec))
 
@@ -397,7 +410,7 @@ class LeaseManager:
         batch path (ring when available, coalesced socket frame
         otherwise). The blob-only route: callers that already know the
         lease path declines (classic_route) never build a spec object."""
-        if self._closed:
+        if not self._batch_frames or self._closed:
             return False
         if self._ring_enabled:
             ring = self._ring
@@ -428,7 +441,7 @@ class LeaseManager:
         slots and return — template patching, ring writes, and frame
         sends all happen on the lease executor. One uncontended lock
         acquisition + a list append on the submit hot path."""
-        if self._closed:
+        if not self._batch_frames or self._closed:
             return False
         batch = None
         with self._classic_lock:
@@ -598,18 +611,22 @@ class LeaseManager:
     def _send(self, lease: _Lease, specs: List[Any]):
         """Ship a batch of (already reserved) specs to the leased worker.
         One notify per batch; results come back batched too. Arg deps were
-        pinned at submit(). The frame carries PRE-PICKLED spec blobs
-        (template-patched when available) so the envelope pickle is a
-        memcpy of bytes, not a re-serialization of every spec."""
+        pinned at submit(). With batch framing on, the frame carries
+        PRE-PICKLED spec blobs (template-patched when available) so the
+        envelope pickle is a memcpy of bytes, not a re-serialization of
+        every spec."""
         try:
-            lease.conn.notify("lease_run_tasks_b",
-                              [spec_wire(s) for s in specs])
-            try:
-                m = _submit_metrics_get()
-                m[0].inc(tags={"path": "lease"})
-                m[1].observe(len(specs), tags={"path": "lease"})
-            except Exception:
-                pass
+            if self._batch_frames:
+                lease.conn.notify("lease_run_tasks_b",
+                                  [spec_wire(s) for s in specs])
+                try:
+                    m = _submit_metrics_get()
+                    m[0].inc(tags={"path": "lease"})
+                    m[1].observe(len(specs), tags={"path": "lease"})
+                except Exception:
+                    pass
+            else:
+                lease.conn.notify("lease_run_tasks", specs)
         except BaseException:
             self._fail_specs(lease, specs)
 
@@ -733,16 +750,26 @@ class LeaseManager:
 
     def _make_direct_handler(self, holder: Dict[str, Any]):
         def on_msg(conn, mtype, payload, msg_id):
-            if mtype == protocol.LEASE_TASKS_DONE_B:
+            if mtype == "lease_tasks_done":
+                lse = holder.get("lease")
+                if lse is not None:
+                    self._on_tasks_done(lse, payload["results"])
+            elif mtype == protocol.LEASE_TASKS_DONE_B:
                 lse = holder.get("lease")
                 if lse is None:
                     return
-                # The conn thread's whole job: park the raw blob list
-                # and poke the absorb executor. Unpickle, inline insert,
-                # waiter wakeup, refill computation and decrefs all
-                # happen off this thread.
-                self._ingest.append((lse, payload))
-                self._absorb_submit()
+                if self._absorb_exec is not None:
+                    # The conn thread's whole job: park the raw blob
+                    # list and poke the absorb executor. Unpickle,
+                    # inline insert, waiter wakeup, refill computation
+                    # and decrefs all happen off this thread.
+                    self._ingest.append((lse, payload))
+                    self._absorb_submit()
+                else:
+                    # Knob drift (worker ships blobs, driver absorb
+                    # off): absorb inline — always correct, just the
+                    # pre-split cost profile.
+                    self._absorb_frame(lse, payload)
             elif mtype == protocol.ATTACH_COMPLETION_SEGMENT:
                 # Worker created its completion segment next to our
                 # ring; map it and ack so the worker arms its producer
@@ -773,7 +800,7 @@ class LeaseManager:
     def _absorb_frame(self, lease: _Lease, blobs: List[bytes]):
         try:
             results = [pickle.loads(b) for b in blobs]
-            self._on_tasks_done(lease, results)
+            self._on_tasks_done(lease, results, defer_send=True)
         except BaseException as e:
             self._absorb_failed(lease, e)
 
@@ -801,7 +828,7 @@ class LeaseManager:
             by_lease.setdefault(ent[0], []).append(rec)
         for lease, recs in by_lease.items():
             try:
-                self._on_tasks_done(lease, recs)
+                self._on_tasks_done(lease, recs, defer_send=True)
             except BaseException as e:
                 self._absorb_failed(lease, e)
 
@@ -810,6 +837,8 @@ class LeaseManager:
         already-installed same-node lease (leases installed later get
         the advertisement inline in _install_lease). Idempotent on the
         worker side — a repeat attach for a conn is ignored."""
+        if not self._worker_ring:
+            return
         with self._lock:
             leases = [l for st in self._shapes.values()
                       for l in st.leases if not l.dead]
@@ -823,6 +852,7 @@ class LeaseManager:
         same-filesystem mmap."""
         ring = self._w._comp_ring
         if (ring is None or self._w._comp_ring_state != 2
+                or not self._worker_ring
                 or lease.node_id != self._w.node_id):
             return
         try:
@@ -857,13 +887,18 @@ class LeaseManager:
             self._decref_deps(spec)
         self._exec_submit(self._drop_lease, lease)
 
+    def steal_enabled(self) -> bool:
+        return self._steal
+
     def steal_absorb(self) -> bool:
         """Stage 3 (parallel wave collection): a caller about to block
         in get()/wait() absorbs one parked completion frame on ITS OWN
         thread instead of idling behind the absorb executor. Returns
-        False when the queue is empty — the caller then parks for real.
-        Absorption is thread-safe: accounting runs under the manager
-        lock, the inline cache lock is a leaf."""
+        False when the queue is empty (or stealing is off) — the caller
+        then parks for real. Absorption is thread-safe: accounting runs
+        under the manager lock, the inline cache lock is a leaf."""
+        if not self._steal:
+            return False
         try:
             lease, blobs = self._ingest.popleft()
         except IndexError:
@@ -1027,22 +1062,37 @@ class LeaseManager:
     def _fallback_many(self, specs: List[Any]):
         """Wave fallback (capacity denial, lease drop): batched submits
         so a big queued burst costs the GCS one handler invocation per
-        chunk, not per spec. The chunk ships as pre-pickled blobs (reusing
-        each spec's template-patched bytes instead of re-serializing the
-        wave)."""
+        chunk, not per spec. With batch framing on, the chunk ships as
+        pre-pickled blobs (reusing each spec's template-patched bytes
+        instead of re-serializing the wave)."""
         for i in range(0, len(specs), self._FALLBACK_CHUNK):
             chunk = specs[i:i + self._FALLBACK_CHUNK]
-            self._classic_send([spec_wire(s) for s in chunk])
+            if self._batch_frames:
+                self._classic_send([spec_wire(s) for s in chunk])
+            else:
+                try:
+                    self._bulk_conn_get().notify("submit_tasks", list(chunk))
+                except Exception:
+                    # Bulk conn unavailable: the main (reconnecting)
+                    # channel still delivers; a dying driver's refs
+                    # error out with it anyway.
+                    try:
+                        self._w.gcs.notify("submit_tasks", list(chunk))
+                    except Exception:
+                        pass
             for s in chunk:
                 self._decref_deps(s)
 
     # ------------------------------------------------------- completion
 
-    def _on_tasks_done(self, lease: _Lease, results: List[dict]):
-        """Batched completion from the leased worker: wake getters,
-        refill the pipeline. Runs on the absorb executor (or a stealing
-        caller thread) and hands the refill-send to the lease executor,
-        so a slow absorb can never stall pipeline top-up."""
+    def _on_tasks_done(self, lease: _Lease, results: List[dict],
+                       defer_send: bool = False):
+        """Batched completion notify from the leased worker: wake
+        getters, refill the pipeline. Runs on the lease conn's serve
+        thread on the classic path; with the absorb split it runs on
+        the absorb executor (or a stealing caller thread) and hands the
+        refill-send to the lease executor (defer_send) so a slow absorb
+        can never stall pipeline top-up."""
         try:
             _completion_metrics_get()[1].observe(len(results))
         except Exception:
@@ -1118,7 +1168,10 @@ class LeaseManager:
             if deps:
                 refs.decref_many(deps)
         if drained:
-            self._exec_submit(self._send, lease, drained)
+            if defer_send:
+                self._exec_submit(self._send, lease, drained)
+            else:
+                self._send(lease, drained)
         if drain_done:
             # Revocation drain finished: NOW surrender the worker.
             self._exec_submit(self._drop_lease, lease)
@@ -1520,7 +1573,8 @@ class LeaseManager:
             except Exception:
                 pass
         self._exec.shutdown(wait=False)
-        # Parked frames die with the driver: every inflight event was
-        # already set above, so nothing can hang on them.
-        self._ingest.clear()
-        self._absorb_exec.shutdown(wait=False)
+        if self._absorb_exec is not None:
+            # Parked frames die with the driver: every inflight event
+            # was already set above, so nothing can hang on them.
+            self._ingest.clear()
+            self._absorb_exec.shutdown(wait=False)

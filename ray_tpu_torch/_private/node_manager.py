@@ -962,6 +962,8 @@ class NodeManager:
     # ---------------------------------------------------------- worker pool
 
     def _start_zygotes(self) -> None:
+        if not config.worker_zygote_enabled:
+            return
         count = max(1, int(config.worker_zygote_count))
         env = dict(os.environ)
         # CPU-only stack in the zygote: no GPU (GPU-bound workers keep
@@ -2139,6 +2141,8 @@ class NodeManager:
         try:
             if mtype == "register_worker":
                 self._on_register_worker(conn, payload, msg_id)
+            elif mtype == "task_done":
+                self._on_task_done(conn, payload)
             elif mtype == "task_done_batch":
                 self._on_task_done_batch(conn, payload)
             elif mtype == "actor_ready":
@@ -2959,6 +2963,19 @@ class NodeManager:
                     conn.notify("exit")
                 except protocol.ConnectionClosed:
                     pass
+
+    def _on_task_done(self, conn, p):
+        wid = conn.meta.get("worker_id")
+        with self._lock:
+            w = self._workers.get(wid)
+            if w is None:
+                return
+            w.current_tasks.pop(p["task_id"], None)
+            self._release_worker_after_tasks_locked(w, conn)
+        self._report_task_done(p["task_id"], p["status"], p.get("objects"),
+                               error=p.get("error"),
+                               inline=p.get("inline"))
+        self._dispatch_queued()
 
     def _on_task_done_batch(self, conn, payload):
         """Batched completion frame from a worker: (task_id, blob)

@@ -152,6 +152,14 @@ class TaskSpec:
     placement_group_id: Optional[PlacementGroupID] = None
     placement_group_bundle_index: int = -1
     runtime_env: Optional[dict] = None
+    # Device-object donation (@remote(_donate_result=True)): the executing
+    # worker releases the storage of the producer's returned tensor the
+    # moment the return value finishes staging into the arena — device
+    # memory goes back to PyTorch's caching allocator without waiting for
+    # GC, for producers that hand off and move on. Rides the spec through
+    # both the lease direct-transport path and the GCS-scheduled path
+    # (worker_main._store_returns honors it on either).
+    donate_result: bool = False
     submitted_at: float = field(default_factory=time.time)
     # {trace_id, parent_span_id}: carried across hops so task events form
     # a distributed trace (reference: tracing_helper.py:284 _ray_trace_ctx).
@@ -178,14 +186,14 @@ class TaskSpec:
     # Compact pickle state: a TUPLE in field order instead of the
     # dataclass __dict__ — specs are the payload of every scheduling
     # message (submit waves pickle them by the hundred-thousand), and
-    # dropping the 18 field-name strings per spec cuts both dumps and
+    # dropping the 19 field-name strings per spec cuts both dumps and
     # loads time. Also drops the _rids memo from the wire.
     _STATE_FIELDS = (
         "task_id", "job_id", "function_key", "args", "arg_deps",
         "num_returns", "resources", "name", "max_retries", "retries_left",
         "caller_id", "owner_node", "scheduling_strategy",
         "placement_group_id", "placement_group_bundle_index",
-        "runtime_env", "submitted_at", "trace_ctx")
+        "runtime_env", "donate_result", "submitted_at", "trace_ctx")
 
     def __getstate__(self):
         return tuple(getattr(self, f) for f in self._STATE_FIELDS)

@@ -635,10 +635,14 @@ class CoreWorker:
         # local-first policy + direct_task_transport.h:75): same-shape
         # tasks stream straight to leased workers, with leases granted by
         # the caller's OWN node manager when resources fit (GCS consulted
-        # only on spillback).
+        # only on spillback). local_scheduling_enabled=0 disables the
+        # whole decentralized path — every task then serializes through
+        # the central GCS scheduler (the A/B baseline).
         self._lease_mgr = None
         self._lease_mgr_lock = threading.Lock()
-        if role == "driver":
+        self._lease_wanted = bool(_cfg.lease_enabled
+                                  and _cfg.local_scheduling_enabled)
+        if self._lease_wanted and role == "driver":
             from ray_tpu_torch._private.lease import LeaseManager
 
             self._lease_mgr = LeaseManager(self)
@@ -656,6 +660,7 @@ class CoreWorker:
         self._comp_ring_lock = threading.Lock()
         self._comp_ring_enabled = (
             role == "driver"
+            and bool(_cfg.completion_ring_enabled)
             and _platform.machine() in ("x86_64", "AMD64"))
         # Worker completion segments: per-worker SPSC
         # segments beside the main ring, attached over the lease conn
@@ -665,7 +670,9 @@ class CoreWorker:
         # closes a segment (single-consumer) — other threads just flag
         # "closing" under _comp_ring_lock.
         self._comp_segments: Dict[str, Dict[str, Any]] = {}
-        self._worker_ring_enabled = self._comp_ring_enabled
+        self._worker_ring_enabled = (
+            self._comp_ring_enabled
+            and bool(_cfg.worker_completion_ring_enabled))
         # Workers get theirs lazily, on their first task submission:
         # LeaseManager construction costs a nodes() RPC + an NM pre-dial
         # + a flusher thread, and most actor/task workers never submit —
@@ -680,7 +687,8 @@ class CoreWorker:
         profiler_mod.maybe_start_always_on()
 
     def _ensure_lease_mgr(self):
-        if self._lease_mgr is None and not self._closed:
+        if self._lease_mgr is None and self._lease_wanted \
+                and not self._closed:
             from ray_tpu_torch._private.lease import LeaseManager
 
             with self._lease_mgr_lock:
@@ -1037,17 +1045,26 @@ class CoreWorker:
             # while we block, so the steal interleaves with bounded
             # event waits (backing off to 50 ms) rather than running
             # once up front and then parking unconditionally.
-            step = 0.002
-            while not ent["ev"].is_set():
-                while not ent["ev"].is_set() and lm.steal_absorb():
-                    pass
-                t = None if deadline is None else deadline - time.time()
-                if t is not None and t <= 0:
+            if lm.steal_enabled():
+                step = 0.002
+                while not ent["ev"].is_set():
+                    while not ent["ev"].is_set() and lm.steal_absorb():
+                        pass
+                    t = None if deadline is None \
+                        else deadline - time.time()
+                    if t is not None and t <= 0:
+                        raise exceptions.GetTimeoutError(
+                            "object not ready within timeout")
+                    if ent["ev"].wait(step if t is None
+                                      else min(step, t)):
+                        break
+                    step = min(step * 2, 0.05)
+            else:
+                t = None if deadline is None else max(0.0,
+                                                      deadline - time.time())
+                if not ent["ev"].wait(t):
                     raise exceptions.GetTimeoutError(
                         "object not ready within timeout")
-                if ent["ev"].wait(step if t is None else min(step, t)):
-                    break
-                step = min(step * 2, 0.05)
             err = ent.get("error")
             if err is not None:
                 # Absorption died on this lease's completion frame: a
@@ -1528,7 +1545,7 @@ class CoreWorker:
 
     def _build_template(self, holder: SubmitTemplate, function_key, name,
                         num_returns, resources, max_retries, strategy,
-                        pg_id, bundle_index):
+                        pg_id, bundle_index, donate_result):
         from ray_tpu_torch._private import spec_template
 
         tpl = spec_template.build(dict(
@@ -1538,7 +1555,7 @@ class CoreWorker:
             caller_id=self.client_id, owner_node=self.node_id,
             scheduling_strategy=strategy, placement_group_id=pg_id,
             placement_group_bundle_index=bundle_index, runtime_env=None,
-            arg_deps=[], trace_ctx=None))
+            donate_result=donate_result, arg_deps=[], trace_ctx=None))
         if tpl is not None:
             tpl.set_verify(bool(config.submit_template_verify))
         holder.tpl = tpl
@@ -1553,6 +1570,7 @@ class CoreWorker:
                     placement_group=None,
                     placement_group_bundle_index: int = -1,
                     runtime_env=None,
+                    donate_result: bool = False,
                     template: Optional[SubmitTemplate] = None
                     ) -> List[ObjectRef]:
         if runtime_env:
@@ -1572,7 +1590,8 @@ class CoreWorker:
         trace_ctx = _tracing().for_submit()
         pg_id = placement_group.id if placement_group is not None else None
         spec = None
-        if template is not None and not runtime_env:
+        if template is not None and not runtime_env \
+                and config.submit_spec_template_enabled:
             # Pre-serialized spec template (spec_template.py): patch the
             # variable slots into the RemoteFunction's frozen skeleton —
             # no TaskSpec.__init__, no per-call pickle.dumps. The wire
@@ -1586,7 +1605,8 @@ class CoreWorker:
                     tpl = self._build_template(
                         template, function_key, name, num_returns,
                         resources, max_retries, scheduling_strategy,
-                        pg_id, placement_group_bundle_index)
+                        pg_id, placement_group_bundle_index,
+                        donate_result)
             # accepts() inlined: this runs once per submission.
             if tpl is not None and trace_ctx is None and not deps \
                     and type(args_blob) is bytes \
@@ -1629,6 +1649,7 @@ class CoreWorker:
                 placement_group_id=pg_id,
                 placement_group_bundle_index=placement_group_bundle_index,
                 runtime_env=runtime_env,
+                donate_result=donate_result,
                 trace_ctx=trace_ctx,
             )
         # Direct transport first: plain tasks stream to a leased worker
@@ -2043,6 +2064,11 @@ class CoreWorker:
         when the request was handed off — the grant/spillback resolves
         asynchronously on the route executor; actor method calls park on
         the route meanwhile. False = caller must use the classic path."""
+        from ray_tpu_torch._private.config import config as _cfg
+
+        if not (bool(_cfg.local_actor_creation_enabled)
+                and bool(_cfg.local_scheduling_enabled)):
+            return False
         if not self._local_actor_eligible(spec):
             return False
         addr = self._own_nm_address()

@@ -94,7 +94,15 @@ class WorkerExecutor:
         # Worker-turnaround fast path knobs, snapshotted once (the
         # spawning NM ships its non-default config in the worker env,
         # applied in main() before this executor exists).
-        self._inline_max = int(config.worker_inline_return_max)
+        self._inline_max = (int(config.worker_inline_return_max)
+                            if bool(config.worker_inline_returns_enabled)
+                            else 0)
+        self._batch_done = bool(config.task_done_batch_enabled)
+        # SCALE_r10 stage 1: ship lease completions as frames of
+        # per-record pickle blobs (lease_tasks_done_b, the completion
+        # twin of lease_run_tasks_b) so the driver's conn thread only
+        # parks raw bytes and the absorb executor unpickles off-thread.
+        self._absorb_b = bool(config.completion_absorb_enabled)
         # Worker->driver shm completion segments: when a
         # same-node lease holder advertises its completion ring, we
         # create a per-conn SPSC segment next to it and append lease
@@ -105,7 +113,9 @@ class WorkerExecutor:
         # store-store ordering (see shm_ring).
         import platform
 
-        self._worker_ring_on = platform.machine() in ("x86_64", "AMD64")
+        self._worker_ring_on = (
+            bool(config.worker_completion_ring_enabled)
+            and platform.machine() in ("x86_64", "AMD64"))
         self._seg_bytes = int(config.worker_completion_ring_bytes)
         self._comp_producers: Dict[Any, Any] = {}   # lease conn -> producer
         self._prod_lock = threading.Lock()
@@ -252,11 +262,18 @@ class WorkerExecutor:
             self._cv.notify()
 
     def _on_direct_msg(self, conn, mtype, payload, msg_id):
-        if mtype == "lease_run_tasks_b":
-            # A batch of pre-pickled spec blobs (template-patched on the
-            # driver) from the lease holder; results flow back in batched
-            # completion frames (amortizing per-message cost both ways —
-            # reference: direct transport pipelining).
+        if mtype == "lease_run_tasks":
+            # A batch of specs from the lease holder; results flow back in
+            # batched "lease_tasks_done" notifies (amortizing per-message
+            # cost both ways — reference: direct transport pipelining).
+            with self._cv:
+                for spec in payload:
+                    self._queue.append(("lease_task", (spec, conn)))
+                self._cv.notify()
+        elif mtype == "lease_run_tasks_b":
+            # Batched framing variant: the frame carries pre-pickled
+            # spec blobs (template-patched on the driver) — decode here,
+            # then identical semantics to lease_run_tasks.
             specs = []
             for b in payload:
                 try:
@@ -534,7 +551,8 @@ class WorkerExecutor:
         (framed blob in the completion message, zero store touches) —
         OOB-free results at or under ``worker_inline_return_max``.
         Device tensors always carry out-of-band buffers, so they always
-        take the store path (and keep their staging semantics)."""
+        take the store path (and keep their staging/donation
+        semantics)."""
         if getattr(spec, "num_returns", None) == "dynamic":
             return self._store_dynamic_returns(spec, result)
         ids = spec.return_ids()
@@ -551,9 +569,12 @@ class WorkerExecutor:
             values = list(result)
         out = []
         inline: Dict[bytes, bytes] = {}
+        donate = bool(getattr(spec, "donate_result", False))
+        inline_max = 0 if donate else self._inline_max
+        donate_after = []
         for oid, value in zip(ids, values):
             sobj = serialization.serialize(value)
-            if inline_objects.eligible(sobj, self._inline_max):
+            if inline_objects.eligible(sobj, inline_max):
                 blob = sobj.to_bytes()
                 inline[oid.binary()] = blob
                 out.append((oid.binary(), len(blob)))
@@ -564,9 +585,18 @@ class WorkerExecutor:
                 pass
             # Staging of this slot is complete: register the device
             # tensor for same-process by-reference gets (actor/worker
-            # chaining).
-            device_objects.note_return(self.core, oid.binary(), value)
+            # chaining), or queue it for donation. Donation is deferred
+            # until ALL slots are staged — a multi-return task may
+            # return the same tensor in two slots, and releasing it at
+            # slot 0 would make slot 1 serialize a dead storage.
+            if donate:
+                donate_after.append((oid.binary(), value))
+            else:
+                device_objects.note_return(self.core, oid.binary(), value,
+                                           donate=False)
             out.append((oid.binary(), sobj.total_size()))
+        for oid_b, value in donate_after:
+            device_objects.note_return(self.core, oid_b, value, donate=True)
         return out, inline
 
     def _store_dynamic_returns(self, spec, result) -> tuple:
@@ -586,6 +616,8 @@ class WorkerExecutor:
                 f"generator/iterable, got {type(result).__name__}")
         out = []
         yielded_ids: list = []
+        donate = bool(getattr(spec, "donate_result", False))
+        donate_after: list = []
         for i, value in enumerate(result):
             oid = ObjectID.for_return(spec.task_id, i + 1).binary()
             sobj = serialization.serialize(value)
@@ -593,9 +625,19 @@ class WorkerExecutor:
                 self.core.store.put_serialized(oid, sobj)
             except plasma.ObjectExistsError:
                 pass   # retry of a task killed mid-yield
-            device_objects.note_return(self.core, oid, value)
+            if donate:
+                # Releasing per-yield would pull the storage out from
+                # under a generator that reuses its yielded tensor
+                # (x = step(x); yield x) — donation waits until the
+                # generator is done.
+                donate_after.append((oid, value))
+            else:
+                device_objects.note_return(self.core, oid, value,
+                                           donate=False)
             yielded_ids.append(oid)
             out.append((oid, sobj.total_size()))
+        for oid, value in donate_after:
+            device_objects.note_return(self.core, oid, value, donate=True)
         gen_oid = spec.return_ids()[0].binary()
         gen_obj = serialization.serialize(ObjectRefGenerator(yielded_ids))
         try:
@@ -701,7 +743,7 @@ class WorkerExecutor:
 
     def _execute_lease_task(self, spec: TaskSpec, conn):
         """Run a direct-transport task; the result is buffered and ships
-        to the caller in a batched completion frame (no
+        to the caller in a batched "lease_tasks_done" notify (no
         node-manager/GCS round trip on the hot path; the caller
         batch-reports completions to the GCS for locations + lineage)."""
         tid = spec.task_id.binary()
@@ -795,19 +837,23 @@ class WorkerExecutor:
                     continue
                 results = rest
             try:
-                # Frames of per-record pickle blobs: the driver's conn
-                # thread only parks raw bytes and its absorb executor
-                # unpickles off-thread.
-                conn.notify(protocol.LEASE_TASKS_DONE_B, [
-                    pickle.dumps(r, protocol=5) for r in results])
+                if self._absorb_b:
+                    conn.notify(protocol.LEASE_TASKS_DONE_B, [
+                        pickle.dumps(r, protocol=5) for r in results])
+                else:
+                    conn.notify("lease_tasks_done", {"results": results})
             except protocol.ConnectionClosed:
                 pass  # caller gone; its GCS-side cleanup owns the fallout
         if not nm_records:
             return
         try:
-            self.nm.notify("task_done_batch", [
-                (r["task_id"], pickle.dumps(r, protocol=5))
-                for r in nm_records])
+            if self._batch_done:
+                self.nm.notify("task_done_batch", [
+                    (r["task_id"], pickle.dumps(r, protocol=5))
+                    for r in nm_records])
+            else:
+                for r in nm_records:
+                    self.nm.notify("task_done", r)
         except protocol.ConnectionClosed:
             os._exit(0)
 

@@ -11,10 +11,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch._private import worker as worker_mod
-
-# Seconds between two polls of ``get_log(follow=True)`` (and ``logs -f``)
-# when the caller names no interval.
-LOG_FOLLOW_INTERVAL_S = 1.0
+from ray_tpu_torch._private.config import config as _cfg
 
 
 def _gcs():
@@ -92,7 +89,7 @@ def get_log(worker_id: Optional[str] = None,
 
     ``follow=True`` returns a GENERATOR with ``tail -f`` semantics
     instead: it yields the initial tail entries, then polls the agents
-    every ``interval_s`` (default ``LOG_FOLLOW_INTERVAL_S``) with
+    every ``interval_s`` (default ``log_follow_interval_s``) with
     byte-offset cursors and yields only entries that gained lines.
     Close the generator (or Ctrl-C the loop consuming it) to stop."""
     payload: Dict[str, Any] = {"lines": lines}
@@ -123,7 +120,7 @@ def _follow_log(payload: Dict[str, Any], interval_s: Optional[float]):
     import time as _time
 
     if interval_s is None:
-        interval_s = LOG_FOLLOW_INTERVAL_S
+        interval_s = float(_cfg.log_follow_interval_s)
     interval_s = max(0.05, float(interval_s))
     # cursor key: (node_id, path) -> next byte offset
     cursors: Dict[Any, int] = {}

@@ -614,21 +614,46 @@ _world_lock = threading.Lock()
 _world_users = 0
 
 
+# Where a UDP socket is connected to find the outbound interface: an
+# address of TEST-NET-1 (RFC 5737), which the kernel routes like any
+# outside address and no host answers. A UDP connect sends no packet.
+_ROUTE_PROBE = ("192.0.2.1", 9)
+
+
 def _node_address(rt: Any) -> str:
-    """This process's host as the runtime's other nodes reach it: the host
-    of its node manager's ``host:port`` where the runtime lists its nodes
-    (``nodes()``, as the ``ray_tpu`` module does), else the loopback, which
-    is all the in-process runtime's one process needs."""
+    """This process's host as the runtime's other nodes reach it.
+
+    * The runtime lists this process's node (``nodes()``, as the port's
+      runtime and the ``ray_tpu`` module do): the host of its node
+      manager's ``host:port``. The runtime chose that address for its own
+      peers, so it is the one they can reach, where a machine with several
+      interfaces could answer the route lookup below with another. A node
+      manager on a Unix socket has no host: its peers share this host, and
+      the loopback reaches them.
+    * It lists nodes, but not this process's: the reference's rule, the
+      outbound interface a UDP connect picks (no packet is sent), and the
+      loopback if the host has no route.
+    * It lists no nodes at all (the in-process ``LocalRuntime``): the
+      loopback, which is all its one process needs.
+    """
     nodes = getattr(rt, "nodes", None)
-    if nodes is not None:
-        node_id = rt.get_runtime_context().get_node_id()
-        for n in nodes():
-            if n.get("NodeID") == node_id:
-                host, sep, port = str(
-                    n.get("NodeManagerAddress", "")).rpartition(":")
-                if sep and host and port.isdigit():
-                    return host
-    return "127.0.0.1"
+    if nodes is None:
+        return "127.0.0.1"
+    node_id = rt.get_runtime_context().get_node_id()
+    for n in nodes():
+        if n.get("NodeID") == node_id:
+            host, sep, port = str(
+                n.get("NodeManagerAddress", "")).rpartition(":")
+            return host if sep and host and port.isdigit() else "127.0.0.1"
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            s.connect(_ROUTE_PROBE)
+            return s.getsockname()[0]
+        finally:
+            s.close()
+    except OSError:
+        return "127.0.0.1"
 
 
 def _free_port() -> int:

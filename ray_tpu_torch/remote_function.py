@@ -32,7 +32,9 @@ _TASK_DEFAULTS = dict(
     runtime_env=None,
     max_calls=0,
     _metadata=None,
-    # Device-object donation, refused until a later slice ports it.
+    # Opt-in device-object donation: release the producing worker's
+    # tensor storage as soon as the return value is staged into the
+    # object store (see task_spec.TaskSpec.donate_result).
     _donate_result=False,
 )
 
@@ -42,10 +44,6 @@ def _merge_options(base: Dict[str, Any], overrides: Dict[str, Any]):
     for k, v in overrides.items():
         if k not in _TASK_DEFAULTS:
             raise ValueError(f"unknown task option: {k}")
-        if k == "_donate_result" and v:
-            raise ValueError(
-                "_donate_result is not ported yet: result donation is "
-                "queued as a later slice (ROADMAP.md)")
         out[k] = v
     return out
 
@@ -133,6 +131,7 @@ class RemoteFunction:
             placement_group=pg,
             placement_group_bundle_index=bundle_index,
             runtime_env=o["runtime_env"],
+            donate_result=bool(o["_donate_result"]),
             template=self._submit_template,
         )
         if o["num_returns"] == 0:

@@ -17,9 +17,9 @@ Routing load is pushed too: the controller piggybacks each replica's
 observed load (``autoscale_load`` — in-flight requests, plus engine
 queue depth for deployments that expose it) on the same channel, and
 the handle layers its own optimistic in-flight deltas on top. The
-request hot path therefore makes ZERO stats RPCs. (The reference keeps a
-two-``stats.remote()``-per-request probe behind a knob as an A/B
-baseline; the port runs the pushed path only.)
+request hot path therefore makes ZERO stats RPCs (the legacy
+two-``stats.remote()``-per-request probe survives behind the
+``serve_handle_stats_rpc`` config knob as the A/B baseline).
 """
 
 from __future__ import annotations
@@ -450,6 +450,9 @@ class DeploymentHandle:
         return done
 
     def _pick(self):
+        import ray_tpu_torch
+        from ray_tpu_torch._private.config import config
+
         self._ensure_listener()
         self._refresh()
         with self._lock:
@@ -468,9 +471,17 @@ class DeploymentHandle:
                     f"{self.deployment_name!r}")
         if len(replicas) == 1:
             return replicas[0]
-        # Power of two choices on per-replica load: pushed loads + local
-        # optimistic deltas, zero RPCs.
+        # Power of two choices on per-replica load.
         a, b = self._rr.sample(replicas, 2)
+        if config.serve_handle_stats_rpc:
+            # Legacy A/B baseline: two blocking stats RPCs per request.
+            try:
+                sa, sb = ray_tpu_torch.get(
+                    [a.stats.remote(), b.stats.remote()], timeout=2)
+                return a if sa["ongoing"] <= sb["ongoing"] else b
+            except Exception:
+                return a
+        # Pushed loads + local optimistic deltas: zero RPCs.
         with self._lock:
             return a if self._load_of(a) <= self._load_of(b) else b
 

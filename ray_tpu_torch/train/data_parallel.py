@@ -193,7 +193,10 @@ class DataParallelTrainer:
             dead = [(r, st) for r, st in enumerate(states)
                     if st["state"] == "dead"]
             if dead or group.gang_error is not None:
-                err = group.gang_error
+                # The supervisor names the death (with the GCS's cause
+                # where the runtime pushes one) within about a heartbeat
+                # of a poll seeing it.
+                err = group.wait_gang_error()
                 if err is None:
                     rank, st = dead[0]
                     err = GangMemberDiedError(

@@ -15,16 +15,30 @@ local rank on its node (``gang_local_ranks``), through its
 ``runtime_env`` (``CUDA_VISIBLE_DEVICES``), so every rank computes on its
 process's ``cuda:0``.
 
-The supervisor finds dead members with bounded liveness pings. The
-reference also listens to the GCS's actor-death push
-(``ray_tpu.experimental.pubsub``), which the seam does not carry: here a
-process death is seen at the next ping, within a heartbeat.
+The supervisor finds dead members two ways, as the reference's does: the
+GCS's actor-death push (the ``actor_state`` channel of the runtime's own
+``experimental.pubsub``, drained each heartbeat) and bounded liveness
+pings, which also catch a wedged rank that is still alive. The pubsub
+comes from the runtime the group was given, never by an import of
+another runtime: ``ray_tpu_torch.experimental.pubsub`` on the port's
+runtime, the ``experimental.pubsub`` attribute of another runtime module
+that has one loaded (the ``ray_tpu`` module, say). The in-process
+``LocalRuntime`` has no GCS, so there the pings alone find a death.
+
+A SIGKILLed rank's connections close at once, so a pending ping fails
+before the GCS has heard of the death from the rank's node manager; the
+ping's error then says only that the actor died. Where there is a push,
+the supervisor waits for it, up to one heartbeat, so the gang error
+carries the GCS's death cause (the reference records the ping's error).
+The trainer's poll, which can see the dead rank first, waits for the
+supervisor's gang error in turn (``wait_gang_error``).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import queue
 import threading
 import time
 import traceback
@@ -46,6 +60,17 @@ logger = logging.getLogger("ray_tpu_torch.train.gang")
 
 _gang_metrics = None
 _gang_metrics_lock = threading.Lock()
+
+
+def runtime_pubsub(runtime: Any):
+    """The pubsub module of ``runtime``, or None where it has none."""
+    import ray_tpu_torch
+
+    if runtime is ray_tpu_torch:
+        from ray_tpu_torch.experimental import pubsub
+
+        return pubsub
+    return getattr(getattr(runtime, "experimental", None), "pubsub", None)
 
 
 def _metrics():
@@ -298,11 +323,14 @@ class WorkerGroup:
         self._dead_lock = threading.Lock()
         self._dead_ranks: Dict[int, str] = {}
         self._gang_error: Optional[GangMemberDiedError] = None
+        self._gang_error_set = threading.Event()
+        self._sub = None
         self._poisoned = False
         self._stop = threading.Event()
         self._last_alive: Dict[int, float] = {
             rank: time.time() for rank in range(num_workers)}
         self._pending_polls: Dict[int, Any] = {}
+        self._actor_ids: Dict[str, int] = {}
         self.workers: List[Any] = []
 
         local_ranks = gang_local_ranks(self._rt, self.pg, num_workers,
@@ -329,6 +357,11 @@ class WorkerGroup:
                     experiment_name=experiment_name,
                     device=dev.type if not local else str(dev),
                     runtime=self._rt))
+            # The GCS names an actor in its actor_state messages by the
+            # hex of its id. Only a runtime with a pubsub has a GCS.
+            if runtime_pubsub(self._rt) is not None:
+                self._actor_ids = {w._actor_id.hex(): rank
+                                   for rank, w in enumerate(self.workers)}
             # All ranks join at once: a torch_dist rendezvous blocks every
             # rank until the whole world has joined. Bounded past the
             # members' own formation budgets.
@@ -370,47 +403,128 @@ class WorkerGroup:
             if self._gang_error is None:
                 self._gang_error = GangMemberDiedError(
                     group_name=self.group_name, rank=rank, reason=reason)
+                self._gang_error_set.set()
             if self._poisoned:
                 return
             self._poisoned = True
         _metrics()["poisoned"].inc()
         collective.poison_group(self.group_name, reason, runtime=self._rt)
 
+    def wait_gang_error(self) -> Optional[GangMemberDiedError]:
+        """The gang error, once the supervisor has recorded one, waiting up
+        to two heartbeats for it (a failed ping, then the GCS's push)."""
+        self._gang_error_set.wait(2 * self._heartbeat_s)
+        return self._gang_error
+
     def _supervise_loop(self):
-        """A bounded liveness ping of every member each heartbeat; a member
-        that fails its ping is dead, one that misses ``gang_ping_miss_limit``
-        in a row is wedged. Either poisons the group's coordinator, so the
-        trainer (``gang_error``) and the survivors (their watchers) see the
-        death in bounded time, not at the op deadline."""
+        """Watch the gang for member death: GCS actor-failure notifications
+        (the ``actor_state`` pubsub channel) plus a bounded liveness ping
+        every ``gang_heartbeat_s``. Detection poisons the group's
+        coordinator, so the trainer (``gang_error``) and the survivors
+        (their watchers) see the death in bounded time, not at the op
+        deadline."""
+        sub = None
+        pubsub = runtime_pubsub(self._rt)
+        if pubsub is not None and self._actor_ids:
+            try:
+                sub = pubsub.subscribe("actor_state")
+            except Exception:
+                logger.debug("actor_state pubsub unavailable; death "
+                             "detection falls back to liveness pings only",
+                             exc_info=True)
+        self._sub = sub
         misses = {rank: 0 for rank in range(self.num_workers)}
-        while not self._stop.wait(self._heartbeat_s):
+        try:
+            while not self._stop.wait(self._heartbeat_s):
+                if sub is not None:
+                    self._drain_deaths(sub)
+                self._ping_round(misses)
+        finally:
+            self._sub = None
+            if sub is not None:
+                try:
+                    sub.unsubscribe()
+                # raylint: disable-next=exception-swallow (supervisor
+                # exit cleanup: nothing downstream consumes this sub,
+                # and the supervisor must not die un-unsubscribed)
+                except Exception:
+                    pass
+
+    def _drain_deaths(self, sub):
+        """Drain the GCS's actor-death notifications without blocking (the
+        push path: no latency beyond the heartbeat)."""
+        while True:
+            try:
+                msg = sub.get_nowait()
+            except queue.Empty:
+                return
+            self._on_actor_state(msg)
+
+    def _on_actor_state(self, msg):
+        try:
+            rank = self._actor_ids.get(msg.get("actor_id"))
+            if rank is not None and msg.get("state") == "DEAD":
+                self._note_dead(rank, msg.get("death_cause") or "actor died")
+        except Exception:
+            # A malformed death notification must not be dropped in
+            # silence: the pings still catch the dead rank, but only at
+            # their own pace.
+            logger.warning("dropped a malformed actor_state death "
+                           "notification: %r", msg, exc_info=True)
+
+    def _await_push(self, rank: int) -> bool:
+        """Wait up to one heartbeat for the GCS's push of ``rank``'s death
+        (the ping that failed first knows no cause); True once the rank is
+        noted dead."""
+        sub = self._sub
+        end = time.monotonic() + self._heartbeat_s
+        while sub is not None:
             with self._dead_lock:
-                dead = set(self._dead_ranks)
-            # Submit every ping first, so one slow rank does not stretch
-            # the round (and the detection bound) by N timeouts.
-            pings: Dict[int, Any] = {}
-            for rank, w in enumerate(self.workers):
-                if rank in dead or self._stop.is_set():
-                    continue
-                try:
-                    pings[rank] = w.ping.remote()
-                except Exception as e:
+                if rank in self._dead_ranks:
+                    return True
+            remaining = end - time.monotonic()
+            if remaining <= 0:
+                return False
+            try:
+                msg = sub.get(timeout=remaining)
+            except queue.Empty:
+                return False
+            self._on_actor_state(msg)
+        return False
+
+    def _ping_round(self, misses: Dict[int, int]):
+        """One bounded liveness ping of every live member: a member that
+        fails its ping is dead, one that misses ``gang_ping_miss_limit`` in
+        a row is wedged. Every ping is submitted first, so one slow rank
+        does not stretch the round (and the detection bound) by N
+        timeouts."""
+        with self._dead_lock:
+            dead = set(self._dead_ranks)
+        pings: Dict[int, Any] = {}
+        for rank, w in enumerate(self.workers):
+            if rank in dead or self._stop.is_set():
+                continue
+            try:
+                pings[rank] = w.ping.remote()
+            except Exception as e:
+                if not self._await_push(rank):
                     self._note_dead(rank, f"actor died: {e}")
-            round_deadline = time.monotonic() + self._heartbeat_s
-            for rank, ref in pings.items():
-                try:
-                    self._rt.get(ref, timeout=max(
-                        0.05, round_deadline - time.monotonic()))
-                    self._last_alive[rank] = time.time()
-                    misses[rank] = 0
-                except self._get_timeout_error:
-                    misses[rank] += 1
-                    if misses[rank] >= self._ping_miss_limit:
-                        self._note_dead(
-                            rank, f"unresponsive for {misses[rank]} "
-                                  f"heartbeats")
-                except Exception as e:
-                    # The runtime's dead-actor errors: the actor is gone.
+        round_deadline = time.monotonic() + self._heartbeat_s
+        for rank, ref in pings.items():
+            try:
+                self._rt.get(ref, timeout=max(
+                    0.05, round_deadline - time.monotonic()))
+                self._last_alive[rank] = time.time()
+                misses[rank] = 0
+            except self._get_timeout_error:
+                misses[rank] += 1
+                if misses[rank] >= self._ping_miss_limit:
+                    self._note_dead(
+                        rank, f"unresponsive for {misses[rank]} "
+                              f"heartbeats")
+            except Exception as e:
+                # The runtime's dead-actor errors: the actor is gone.
+                if not self._await_push(rank):
                     self._note_dead(rank, f"actor died: {e}")
 
     def start(self, train_fn: Callable, run_config: Optional[dict],
@@ -464,7 +578,11 @@ class WorkerGroup:
             except Exception as e:
                 st = {"reports": [], "state": "dead", "error": str(e),
                       "error_type": type(e).__name__}
-                self._note_dead(rank, f"actor died: {e}")
+                if self._sub is None:
+                    # No push to wait for: this error is all there is.
+                    # Otherwise the supervisor notes the death with the
+                    # GCS's cause within a heartbeat or two.
+                    self._note_dead(rank, f"actor died: {e}")
             out.append(st)
         return out
 

@@ -311,3 +311,135 @@ def test_cross_process_round_trip_charges_the_arena_on_the_ports_runtime():
         assert rt.get(ref) is t
         assert tdo.stats()["local_hits"] == 1
         assert tdo.stats()["rebuilds"] == 1
+
+
+# ------------------------------------------------------------ donation
+# Twins of tests/test_device_objects.py's donation tests: a returned
+# tensor's storage is released (``untyped_storage().resize_(0)``) once
+# every return slot is staged; a tensor that does not span its whole
+# storage is left alone.
+
+
+class _Core:
+    def __init__(self):
+        self._device_local = {}
+
+
+def test_donation_releases_producer_storage_unit():
+    core = _Core()
+    t = _tensor(1 << 20)
+    tdo.reset_stats()
+    tdo.note_return(core, b"d" * 28, t, donate=True)
+    assert t.untyped_storage().nbytes() == 0
+    assert tdo.stats()["donations"] == 1
+    assert core._device_local == {}  # donated tensors are not registered
+
+    t2 = _tensor(1 << 20)
+    tdo.note_return(core, b"e" * 28, t2, donate=False)
+    assert t2.untyped_storage().nbytes() == 1 << 20
+    assert core._device_local[b"e" * 28] is t2
+    assert tdo.stats()["donations"] == 1
+
+
+def test_donation_leaves_a_view_of_a_larger_storage_alone():
+    """Releasing a storage empties every view of it, where JAX deletes one
+    array: a slice, or a tensor past offset 0, is registered as without
+    donation and its storage kept; a tensor over the whole storage (a
+    reshape, a transpose) is donated."""
+    core = _Core()
+    base = _tensor(1 << 20)
+    tdo.reset_stats()
+    for i, view in enumerate((base[: base.numel() // 2],
+                              base[base.numel() // 2:])):
+        assert not tdo.donatable(view)
+        tdo.note_return(core, bytes([i]) * 28, view, donate=True)
+        assert core._device_local[bytes([i]) * 28] is view
+    assert base.untyped_storage().nbytes() == 1 << 20
+    assert torch.equal(base, _tensor(1 << 20))
+    assert tdo.stats()["donations"] == 0
+
+    whole = _tensor(1 << 20).reshape(512, 512).t()
+    assert tdo.donatable(whole)
+    tdo.note_return(core, b"w" * 28, whole, donate=True)
+    assert whole.untyped_storage().nbytes() == 0
+    assert tdo.stats()["donations"] == 1
+
+
+def test_donate_result_flag_plumbs_to_task_spec():
+    import pickle
+
+    from ray_tpu_torch.remote_function import RemoteFunction
+    from ray_tpu_torch._private.ids import JobID, TaskID
+    from ray_tpu_torch._private.task_spec import TaskSpec
+
+    rf = RemoteFunction(lambda: None, {"_donate_result": True})
+    assert rf._options["_donate_result"] is True
+    assert TaskSpec.__dataclass_fields__["donate_result"].default is False
+    assert "donate_result" in TaskSpec._STATE_FIELDS
+    job = JobID.from_int(1)
+    spec = TaskSpec(task_id=TaskID.for_task(job), job_id=job,
+                    function_key="f", args=b"", arg_deps=[], num_returns=1,
+                    resources={"CPU": 1.0}, donate_result=True)
+    assert pickle.loads(pickle.dumps(spec)).donate_result is True
+
+
+def test_donation_multi_return_same_tensor():
+    """num_returns=2 returning (x, x): donation waits until BOTH slots are
+    staged — releasing at slot 0 would make slot 1 serialize an empty
+    storage and fail the task after user code ran."""
+    from torch_runtimes import ports_runtime
+
+    with ports_runtime(num_cpus=1, object_store_memory=128 * 1024 * 1024
+                       ) as rt:
+        @rt.remote(num_returns=2, _donate_result=True)
+        def twice():
+            import torch
+
+            x = torch.full((64,), 5.0)
+            return x, x
+
+        a, b = rt.get(list(twice.remote()), timeout=60)
+        assert torch.equal(a, torch.full((64,), 5.0))
+        assert torch.equal(b, a)
+
+
+def test_donation_end_to_end():
+    """A producer task stages its return and donation releases its storage;
+    a follow-up task in the same worker process sees the storage at 0
+    bytes. A returned view of a larger tensor keeps its storage."""
+    from torch_runtimes import ports_runtime
+
+    with ports_runtime(num_cpus=1, object_store_memory=128 * 1024 * 1024
+                       ) as rt:
+        @rt.remote(_donate_result=True)
+        def produce(view):
+            import builtins
+
+            import torch
+
+            a = torch.ones((256, 256), dtype=torch.float32)
+            builtins._rtpu_torch_donated_probe = a
+            return a[:128] if view else a
+
+        @rt.remote
+        def check():
+            import builtins
+
+            from ray_tpu_torch._private import device_objects
+
+            # Absent in any other worker than the producer's.
+            a = builtins._rtpu_torch_donated_probe
+            return (a.untyped_storage().nbytes(),
+                    device_objects.stats()["donations"])
+
+        t = rt.get(produce.remote(False), timeout=60)
+        assert torch.equal(t, torch.ones((256, 256)))
+        nbytes, donations = rt.get(check.remote(), timeout=60)
+        assert nbytes == 0
+        assert donations >= 1
+
+        t = rt.get(produce.remote(True), timeout=60)
+        assert torch.equal(t, torch.ones((128, 256)))
+        nbytes, donations2 = rt.get(check.remote(), timeout=60)
+        assert nbytes == 256 * 256 * 4   # a view: its storage kept
+        assert donations2 == donations
