@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only jobs     # phases 1-5 and 19 only
     python3 chip_smoke.py --only correctness  # phases 1-5 and 20 only
     python3 chip_smoke.py --only gaps     # phases 1-5 and 21 only
+    python3 chip_smoke.py --only core     # phases 1-5 and 22 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -63,9 +64,10 @@ Phases, each printed on its own line, each fatal when it fails:
    cache on and off gives the same tokens (two prompts share 128 tokens);
    a contended pool that preempts gives a solo engine's sampled streams;
    threefry on the card gives the CPU's bits and jax.random's.
-10. serve: the serving path's main run. llama-7b at full width and depth,
-   bf16 compute, the block weights cast once; the paged engine with 8
-   slots, max_len 2048, block 16, chunk 512, prefix cache on. 16 requests
+10. serve: the serving path's main run. llama-7b at full width, 16 of
+   its 32 layers (``SERVE_LAYERS``), bf16 compute, the block weights cast
+   once; the paged engine with 8 slots, max_len 2048, block 16, chunk
+   512, prefix cache on. 16 requests
    of 128-1024 prompt tokens (4 share a 256-token prefix), 128 new tokens
    each, all submitted at once: once to a greedy engine and once to a
    sampled one (temperature 0.8, top_k 50; the engine's temperature is
@@ -114,7 +116,7 @@ Phases, each printed on its own line, each fatal when it fails:
    ``prefill_batch_size`` 4 (one ``prefill_slots`` run) gives batch 1's
    tokens; the first chunk is the prefill token; every adopted K/V is on
    the card and is the published tensor itself; every KV block returned.
-   (c) llama-7b at full width and depth, bf16: the disaggregated app
+   (c) llama-7b at full width, 16 layers, bf16: the disaggregated app
    (prefill replica with ``prefill_batch_size`` 4; decode replica paged, 8
    slots, max_len 2048, block 16) serves phase 10's 16 prompts, 128 new
    tokens each, greedy, from 16 client threads through ``generate_stream``.
@@ -197,7 +199,7 @@ Phases, each printed on its own line, each fatal when it fails:
    unary, HTTP SSE and the handle's ``generate_stream``, 4 client threads
    each, gives the argmax rollout of ``models.forward`` (greedy) and a
    solo engine's streams (temperature 0.8, top_k 50); every KV block
-   returned. (b) llama-7b at full width and depth, bf16, 13(c)'s engine
+   returned. (b) llama-7b at full width, 16 layers, bf16, 13(c)'s engine
    config: phase 10's 16 prompts from 16 client threads over HTTP SSE, then
    through the handle; 13(c)'s gates (every budget met, every token in the
    vocabulary, every KV block returned, first-token logits within
@@ -314,6 +316,33 @@ Phases, each printed on its own line, each fatal when it fails:
    errors bit for bit, 16b's trainer phase 4's losses with 24/12/12
    launches a step. Prints the GPU task's cold start and the step ms with
    the toggles on and off.
+22. core: the runtime core's GPU paths, twins of the reference's tests of
+   its API, objects and scheduling; every GPU task holds K1-K3 against
+   their plain versions at the training shape, to phase 2's errors. (a)
+   Worker reuse: three ``num_gpus=1`` probes (16a's task) one after
+   another on phase 16's runtime; the 2nd runs in the 1st's pid with its
+   ``CUDA_VISIBLE_DEVICES``, the 3rd (``runtime_env`` env var ``MARK``) in
+   a fresh pid. Prints each probe's ``spawn_ms``, reused against cold. (b)
+   A ``num_gpus=1, num_returns="dynamic", max_retries=2`` generator yields
+   K1's (O, LSE) for 4 seeded inputs at [96, 1024, 64] bf16 causal; its
+   first attempt SIGKILLs itself after the 2nd yield (a marker file in the
+   session directory tells the attempts apart); the 4 yields equal the
+   driver's own K1 bit for bit (within phase 2's tolerances, said so, if
+   the kernels are not bit-deterministic run to run). Prints kill -> last
+   yield. (c) A two-node ``cluster_utils.Cluster`` (head and worker node
+   of {CPU 2, GPU 1} each, both naming the card): a K1-K3 task (O, dQ, dK,
+   dV, 12.6 MB each) and a base -> double chain of GPU tasks, pinned to the
+   worker node; got on the head (a chunked pull at 5 MiB chunks: prints
+   its GB/s and the head store's peak); the head's pulled copies dropped
+   from its store and the worker node removed; each got again within
+   120 s, rebuilt on the head's GPU from its lineage, equal to the first
+   get. Prints kill -> value for each. (d) 6 of 13a's frames (268 MB each,
+   seeds 13-18) put from the card into a 1 GiB store: the node manager
+   spills; each comes back on the card bit for bit; a ``num_gpus=1`` task
+   given a spilled frame returns its checksum; ``device_staged_bytes`` is
+   charged once a put and not again on a restore. Prints the spill and
+   restore GB/s. Each kernel row of the ``{"kernels": ...}`` line gets the
+   phase's launches in its GPU tasks as ``core_launches``.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -464,12 +493,13 @@ def kernel_inputs(bh, lq, lk, d, dtype, seed):
 
 
 def check_kernels(fa, bh, lq, lk, d, dtype, causal, tol_out, tol_row,
-                  tol_grad, seed=0):
+                  tol_grad, seed=0, outputs=None):
     """Run the three kernels on q of [bh, lq, d] and k, v of [bh, lk, d] in
     ``dtype``; compare with the plain versions on the same tensors (they
     compute in f32 and round where the kernels round). The backward kernels
     get the plain forward's lse and delta, so each kernel is held to its own
-    arithmetic. Returns the kernels' largest abs errors."""
+    arithmetic. Returns the kernels' largest abs errors; the kernels' own
+    outputs go into ``outputs`` when it is a dict."""
     q, k, v, do = kernel_inputs(bh, lq, lk, d, dtype, seed)
     scale = d ** -0.5
     kw = dict(scale=scale, causal=causal)
@@ -493,6 +523,8 @@ def check_kernels(fa, bh, lq, lk, d, dtype, causal, tol_out, tol_row,
     err_dv = close(f"dV {tag}", dv, dv_ref, *tol_grad)
     log(f"check ok {tag}: max |diff| O {err_o:.3e} lse {err_lse:.3e} "
         f"dQ {err_dq:.3e} dK {err_dk:.3e} dV {err_dv:.3e}")
+    if outputs is not None:
+        outputs.update(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
     return {"flash_fwd": max(err_o, err_lse), "flash_bwd_dq": err_dq,
             "flash_bwd_dkv": max(err_dk, err_dv)}
 
@@ -1032,6 +1064,10 @@ THREEFRY_GOLDEN = {
 }
 SERVE_CHECK_LENS = (37, 94, 171, 300)   # prompts 3 and 4 share 128 tokens
 SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX = 16, 128, 256
+# llama-7b's depth in phases 10, 13(c) and 17(b): 16 of its 32 layers at
+# full width, so that the whole script keeps well inside its time limit.
+SERVE_LAYERS = 16
+SERVE_DEPTH = {"n_layers": SERVE_LAYERS}
 SERVE_SHARED = (0, 5, 10, 15)           # requests that share the prefix
 
 
@@ -1359,10 +1395,11 @@ SERVE_LOGIT_ATOL = 0.25
 
 
 def serve(tm, gen, se, fa, seed, profile_path):
-    """Phase 10: llama-7b at full width and depth, bf16, the paged engine;
-    the flash kernels' counts are zeroed before and read after (the
-    serving path launches none of them)."""
-    cfg = se.EngineConfig(preset="llama-7b").gpt_config()
+    """Phase 10: llama-7b at full width, ``SERVE_LAYERS`` deep, bf16, the
+    paged engine; the flash kernels' counts are zeroed before and read
+    after (the serving path launches none of them)."""
+    cfg = se.EngineConfig.from_dict(
+        dict(preset="llama-7b", model_overrides=SERVE_DEPTH)).gpt_config()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     master = tm.init_params(
@@ -1380,10 +1417,11 @@ def serve(tm, gen, se, fa, seed, profile_path):
     for label, sampling in (("greedy", {}),
                             ("sampled", dict(temperature=0.8, top_k=50))):
         torch.cuda.reset_peak_memory_stats()
-        ec = se.EngineConfig(
-            preset="llama-7b", max_slots=8, max_len=2048, paged_kv=True,
-            kv_block_size=16, prefill_chunk=512, prefix_cache_enabled=True,
-            max_new_tokens=SERVE_NEW, **sampling)
+        ec = se.EngineConfig.from_dict(dict(
+            preset="llama-7b", model_overrides=SERVE_DEPTH, max_slots=8,
+            max_len=2048, paged_kv=True, kv_block_size=16,
+            prefill_chunk=512, prefix_cache_enabled=True,
+            max_new_tokens=SERVE_NEW, **sampling))
         _, results[label] = serve_run(gen, se, params, cfg, prompts, label,
                                       ec, SERVE_NEW)
         results[label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2096,10 +2134,9 @@ def rl_algo_phase(seed):
 
 KV_FRAME_SHAPE = (32, 1, 1024, 32, 128)    # llama-7b K block at bucket 1024
 APP_BUCKETS = (128, 256, 512, 1024)
-# Peak device memory phase 13(c) is reckoned to need (PERF.md): two
-# replicas' bf16 weights, the decode pool, the handoffs in flight, and a
-# replica's f32 draw while it is built.
-APP_PEAK_EXPECTED_GB = 55.0
+# llama-7b's params at SERVE_LAYERS layers: 131,080,192 outside the
+# blocks and 157,334,272 a block (5,165,776,896 at all 32).
+SERVE_PARAMS = 131_080_192 + SERVE_LAYERS * 157_334_272
 
 
 def kv_frame():
@@ -2391,8 +2428,8 @@ def serve_app_check(tm, gen, preset="llama-7b"):
 
 
 def serve_app(tm, gen, fa, seed):
-    """13(c): the disaggregated app at full llama-7b width and depth, bf16,
-    on phase 10's 16 prompts from 16 client threads."""
+    """13(c): the disaggregated app at full llama-7b width, ``SERVE_LAYERS``
+    deep, bf16, on phase 10's 16 prompts from 16 client threads."""
     from ray_tpu_torch._private import device_objects as tdo
     from ray_tpu_torch.runtime import LocalRuntime
     from ray_tpu_torch.serve.llm import build_llm_app
@@ -2401,9 +2438,10 @@ def serve_app(tm, gen, fa, seed):
     gc_collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ec = dict(preset="llama-7b", param_seed=seed, max_slots=8, max_len=2048,
-              paged_kv=True, kv_block_size=16, prefill_chunk=512,
-              prompt_buckets=APP_BUCKETS, max_new_tokens=SERVE_NEW,
+    ec = dict(preset="llama-7b", model_overrides=SERVE_DEPTH, param_seed=seed,
+              max_slots=8, max_len=2048, paged_kv=True, kv_block_size=16,
+              prefill_chunk=512, prompt_buckets=APP_BUCKETS,
+              max_new_tokens=SERVE_NEW,
               prefill_batch_size=4, prefill_batch_window_ms=5.0)
     rt = LocalRuntime()
     t0 = time.perf_counter()
@@ -2415,7 +2453,7 @@ def serve_app(tm, gen, fa, seed):
     prefill = rt.serve._replicas["llm7b-prefill"][0].instance
     cfg = prefill._cfg
     n_params = tm.count_params(prefill._params)
-    if n_params != 5_165_776_896:
+    if n_params != SERVE_PARAMS:
         raise AssertionError(f"serve-app: {n_params} params")
     prompts = serve_prompts(seed, cfg.vocab_size)
     steps = []
@@ -2511,7 +2549,7 @@ def serve_app(tm, gen, fa, seed):
         f"models.forward max |diff| {max(errs):.4f} (atol "
         f"{SERVE_LOGIT_ATOL}); flash launches {flash}; peak memory "
         f"{out['peak_gb']:.2f} GB (build {build_peak:.2f}, serving "
-        f"{serve_peak:.2f}; reckoned {APP_PEAK_EXPECTED_GB} of 80)")
+        f"{serve_peak:.2f})")
     return out
 
 
@@ -3228,6 +3266,7 @@ def runtime_gpu_probe(t_submit, tol):
     return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "device_count": torch.cuda.device_count(),
             "pid": os.getpid(), "ppid": os.getppid(),
+            "mark": os.environ.get("MARK"),
             "spawn_ms": (t_enter - t_submit) * 1e3,
             "process_age_ms": age_s * 1e3,
             "torch_import_ms": import_s * 1e3,
@@ -3577,7 +3616,7 @@ def runtime_phase(tm, fa, run, tol, seed, phase12=None, in_process=None):
 # replica actors, handles, the asyncio HTTP/SSE ingress with admission) on
 # the port's own runtime, the LLM engine in a ``num_gpus=1`` replica actor.
 
-PLANE_START_TIMEOUT_S = 900.0   # a replica's build at full llama-7b size
+PLANE_START_TIMEOUT_S = 900.0   # a replica's build at llama-7b width
 
 
 def free_port() -> int:
@@ -3791,17 +3830,18 @@ def plane_check(tm, gen, rt, serve, port):
 
 
 def plane_full(tm, gen, rt, serve, port, seed, in_process):
-    """17(b): llama-7b at full width and depth, bf16, 13(c)'s engine config,
-    in a GPU replica actor: 16 prompts from 16 client threads over HTTP SSE,
-    then through the handle's ``generate_stream``."""
+    """17(b): llama-7b at full width, ``SERVE_LAYERS`` deep, bf16, 13(c)'s
+    engine config, in a GPU replica actor: 16 prompts from 16 client
+    threads over HTTP SSE, then through the handle's ``generate_stream``."""
     from ray_tpu_torch.serve.api import _controller
     from ray_tpu_torch.serve.llm import EngineConfig
     from ray_tpu_torch.serve.llm import replicas as rp
 
     gc_collect()
-    ec = dict(preset="llama-7b", param_seed=seed, max_slots=8, max_len=2048,
-              paged_kv=True, kv_block_size=16, prefill_chunk=512,
-              prompt_buckets=APP_BUCKETS, max_new_tokens=SERVE_NEW,
+    ec = dict(preset="llama-7b", model_overrides=SERVE_DEPTH, param_seed=seed,
+              max_slots=8, max_len=2048, paged_kv=True, kv_block_size=16,
+              prefill_chunk=512, prompt_buckets=APP_BUCKETS,
+              max_new_tokens=SERVE_NEW,
               prefill_batch_size=4, prefill_batch_window_ms=5.0)
     cfg = EngineConfig.from_dict(ec).gpt_config()
     prompts = serve_prompts(seed, cfg.vocab_size)
@@ -5531,6 +5571,540 @@ def gaps_phase(tm, fa, run, ktol, errors, frame16=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the runtime core's GPU paths on the card, twins of the
+# reference's runtime-core tests: a GPU worker reused across tasks of one
+# shape (test_worker_pool), a GPU generator retried after a kill
+# (test_generators), lineage rebuild of a lost K1-K3 result and of a chain
+# of GPU tasks with a chunked pull between nodes (test_refcount_lineage,
+# test_chunked_pull), and CUDA frames spilled to disk (test_spilling).
+
+CORE_GEN_SEEDS = (0, 1, 2, 3)
+CORE_KILL_AFTER = 2            # yields of the generator's first attempt
+CORE_REBUILD_TIMEOUT_S = 120.0
+CORE_FRAMES = 6                # 13a's frame, seeds 13 .. 18
+CORE_STORE_BYTES = 1 << 30
+CORE_SPILL_WAIT_S = 60.0
+CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def core_launches(fa):
+    return {k.symbol.removeprefix("rtt_"): k.launches for k in fa.KERNELS}
+
+
+def core_log_run(runs, what, fa, errors, **extra):
+    """One line of a GPU task's facts, appended to the file ``runs``: its
+    process, node and GPU, its K1-K3 errors against their plain versions
+    and its kernels' launches since it began."""
+    rec = {"what": what, "pid": os.getpid(),
+           "node": os.environ.get("RAY_TPU_TORCH_NODE_ID", ""),
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "errors": errors, "launches": core_launches(fa), "t": time.time(),
+           **extra}
+    with open(runs, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def core_runs(runs):
+    with open(runs) as f:
+        return [json.loads(line) for line in f]
+
+
+def core_same(name, got, want, exact, tol):
+    """``got`` equals ``want``: bit for bit when the kernels are
+    bit-deterministic run to run, else within ``tol``; the largest
+    difference."""
+    if not got.is_cuda or got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.device} {got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if exact:
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"{name}: not bit for bit")
+        return 0.0
+    return close(name, got, want, *tol)
+
+
+def core_deterministic(fa):
+    """Whether K1-K3 give the same bits twice on the same inputs at the
+    training shape (the driver's own runs; comparisons, not counted)."""
+    q, k, v, do = kernel_inputs(B * H, L, L, D, torch.bfloat16, 0)
+    kw = dict(scale=D ** -0.5, causal=True)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_backward_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+        runs.append([o, lse, dq, dk, dv])
+    torch.cuda.synchronize()
+    return all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(*runs))
+
+
+def core_reuse(rt, ktol, errors):
+    """22a: three ``num_gpus=1`` probes one after another (16a's task:
+    K1-K3 against their plain versions at the training shape). The 2nd
+    runs in the 1st's parked worker, on its GPU; the 3rd, with another
+    spawn environment, in a fresh one."""
+    probe = rt.remote(runtime_gpu_probe).options(num_gpus=1)
+    marked = rt.remote(runtime_gpu_probe).options(
+        num_gpus=1, runtime_env={"env_vars": {"MARK": "x"}})
+    got = []
+    for fn in (probe, probe, marked):
+        got.append(rt.get(fn.remote(time.time(), ktol), timeout=300))
+    cold, reused, fresh = got
+    one = {k: 1 for k in CORE_KERNELS}
+    for label, p in zip(("cold", "reused", "marked"), got):
+        if p["launches"] != one or p["errors"] != errors or \
+                p["device_count"] != 1:
+            raise AssertionError(f"core-a {label}: {p}; phase 2's errors "
+                                 f"{errors}")
+    if reused["pid"] != cold["pid"] or reused["cuda_visible_devices"] != \
+            cold["cuda_visible_devices"] or cold["cuda_visible_devices"] \
+            is None:
+        raise AssertionError(f"core-a: the 2nd probe ran in pid "
+                             f"{reused['pid']} on {reused['cuda_visible_devices']}"
+                             f", the 1st in {cold['pid']} on "
+                             f"{cold['cuda_visible_devices']}")
+    if fresh["pid"] in (cold["pid"], reused["pid"]) or fresh["mark"] != "x" \
+            or cold["mark"] is not None:
+        raise AssertionError(f"core-a: the env-marked probe ran in pid "
+                             f"{fresh['pid']} (MARK {fresh['mark']!r}), the "
+                             f"1st in {cold['pid']}")
+    out = {"spawn_ms": {"cold": cold["spawn_ms"],
+                        "reused": reused["spawn_ms"],
+                        "marked": fresh["spawn_ms"]},
+           "pids": [p["pid"] for p in got],
+           "cuda_visible_devices": [p["cuda_visible_devices"] for p in got],
+           "launches": {k: sum(p["launches"][k] for p in got)
+                        for k in CORE_KERNELS}}
+    log(f"core-a ok: worker reuse by GPU shape and spawn env: probe 1 pid "
+        f"{cold['pid']} (CUDA_VISIBLE_DEVICES={cold['cuda_visible_devices']})"
+        f" spawn_ms {cold['spawn_ms']:.1f} cold; probe 2 the same pid and "
+        f"GPU, spawn_ms {reused['spawn_ms']:.1f} reused; probe 3 "
+        f"(env MARK=x) pid {fresh['pid']}, spawn_ms {fresh['spawn_ms']:.1f}"
+        f" cold; each probe's K1-K3 = phase 2's errors {errors}; card: "
+        f"{gpu_line()}")
+    return out
+
+
+def core_generator(marker, seeds, ktol):
+    """22b, a ``num_gpus=1`` dynamic generator: K1-K3 against their plain
+    versions, then K1's (O, LSE) for each seed's inputs at the training
+    shape, one yield each. Its first attempt (no ``marker`` yet) writes
+    the marker and SIGKILLs its own process after ``CORE_KILL_AFTER``
+    yields; the attempt that ends writes ``marker + ".done"``."""
+    import signal
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    errors = check_kernels(fa, B * H, L, L, D, torch.bfloat16, True, **ktol)
+    first = not os.path.exists(marker)
+    for i, seed in enumerate(seeds):
+        q, k, v, _ = kernel_inputs(B * H, L, L, D, torch.bfloat16, seed)
+        o, lse = fa.flash_forward(q, k, v, scale=D ** -0.5, causal=True)
+        torch.cuda.synchronize()
+        yield o, lse
+        if first and i + 1 == CORE_KILL_AFTER:
+            with open(marker, "w") as f:
+                json.dump({"pid": os.getpid(), "killed_at": time.time()}, f)
+            os.kill(os.getpid(), signal.SIGKILL)
+    with open(marker + ".done", "w") as f:
+        json.dump({"pid": os.getpid(), "last_yield_at": time.time(),
+                   "errors": errors, "launches": core_launches(fa)}, f)
+
+
+def core_generator_run(rt, fa, ktol, errors, exact):
+    """22b: the generator's yields, before and after its first attempt's
+    kill, against the driver's own K1 on the same inputs."""
+    from ray_tpu_torch._private import worker as tworker
+
+    marker = os.path.join(tworker._global_cluster.session_dir,
+                          "core_generator_attempt")
+    want = []
+    for seed in CORE_GEN_SEEDS:
+        q, k, v, _ = kernel_inputs(B * H, L, L, D, torch.bfloat16, seed)
+        want.append(fa.flash_forward(q, k, v, scale=D ** -0.5, causal=True))
+    gen = rt.remote(core_generator).options(
+        num_gpus=1, num_returns="dynamic", max_retries=2)
+    t0 = time.time()
+    g = rt.get(gen.remote(marker, CORE_GEN_SEEDS, ktol), timeout=600)
+    resolved = time.time()
+    yields = rt.get(list(g), timeout=300)
+    with open(marker) as f:
+        kill = json.load(f)
+    with open(marker + ".done") as f:
+        done = json.load(f)
+    if len(yields) != len(CORE_GEN_SEEDS) or done["pid"] == kill["pid"] or \
+            done["errors"] != errors:
+        raise AssertionError(f"core-b: {len(yields)} yields, killed pid "
+                             f"{kill['pid']}, done {done}, phase 2's errors "
+                             f"{errors}")
+    worst = 0.0
+    for i, ((o, lse), (wo, wlse)) in enumerate(zip(yields, want)):
+        worst = max(worst,
+                    core_same(f"core-b yield {i} O", o, wo, exact,
+                              ktol["tol_out"]),
+                    core_same(f"core-b yield {i} LSE", lse, wlse, exact,
+                              ktol["tol_row"]))
+    want_launches = {"flash_fwd": 1 + len(CORE_GEN_SEEDS), "flash_bwd_dq": 1,
+                     "flash_bwd_dkv": 1}
+    if done["launches"] != want_launches:
+        raise AssertionError(f"core-b: the retried attempt's launches "
+                             f"{done['launches']}, want {want_launches}")
+    out = {"kill_to_last_yield_s": done["last_yield_at"] - kill["killed_at"],
+           "kill_to_resolved_s": resolved - kill["killed_at"],
+           "submit_to_resolved_s": resolved - t0,
+           "max_abs_err": worst, "bit_for_bit": exact,
+           "launches": done["launches"]}
+    log(f"core-b ok: a num_gpus=1 dynamic generator of K1's (O, LSE) for "
+        f"seeds {list(CORE_GEN_SEEDS)} at [{B * H}, {L}, {D}] bf16 causal "
+        f"killed itself (pid {kill['pid']}) after {CORE_KILL_AFTER} yields "
+        f"and was retried in pid {done['pid']}; its {len(yields)} yields = "
+        f"the driver's K1 " + ("bit for bit" if exact else
+                               f"within phase 2's tolerances ({worst:.3e})")
+        + f"; kill -> last yield {out['kill_to_last_yield_s']:.2f} s, kill "
+        f"-> generator resolved {out['kill_to_resolved_s']:.2f} s; card: "
+        f"{gpu_line()}")
+    return out
+
+
+def core_checked(what, seed, ktol, runs, **extra):
+    """In a 22c or 22d GPU task: K1-K3 for ``seed``'s inputs at the
+    training shape, each held against its plain version on the same
+    inputs (``check_kernels``' dataflow); the task's line goes to
+    ``runs``. Returns the kernels' outputs."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    outs = {}
+    errors = check_kernels(fa, B * H, L, L, D, torch.bfloat16, True,
+                           seed=seed, outputs=outs, **ktol)
+    core_log_run(runs, what, fa, errors, **extra)
+    return outs
+
+
+def core_kernel_outputs(seed, ktol, runs):
+    """22c, a ``num_gpus=1`` task: K1's O and K2-K3's dQ, dK and dV."""
+    outs = core_checked("kernels", seed, ktol, runs)
+    return outs["o"], outs["dq"], outs["dk"], outs["dv"]
+
+
+def core_chain_base(seed, ktol, runs):
+    """22c, the chain's first link (``num_gpus=1``): K1's O."""
+    return core_checked("base", seed, ktol, runs)["o"]
+
+
+def core_chain_double(x, ktol, runs):
+    """22c, the chain's second link (``num_gpus=1``): 2x (exact in bf16)
+    the first link's O, which arrives on this worker's GPU."""
+    core_checked("double", 0, ktol, runs, arg_on_cuda=x.is_cuda)
+    return x * 2
+
+
+class StorePeak:
+    """The largest ``used_bytes`` of a store, sampled every 2 ms on a
+    thread while the block runs."""
+
+    def __init__(self, store):
+        import threading
+
+        self.store, self.peak = store, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.store.stats()["used_bytes"])
+            self._stop.wait(0.002)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.store.stats()["used_bytes"])
+
+
+def core_lineage(ktol, errors, exact):
+    """22c: a head of {CPU 2, GPU 1} and a worker node of {CPU 2, GPU 1},
+    both naming the card. A K1-K3 task and a two-link chain of GPU tasks
+    pinned to the worker node; their results got on the head (a chunked
+    pull at the default 5 MiB chunks); the head's pulled copies dropped
+    from its store (as an eviction would drop them), so each result's one
+    copy lives on the worker node; the node removed; each result got again
+    within ``CORE_REBUILD_TIMEOUT_S``, rebuilt on the head's GPU from its
+    lineage, equal to the first get."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as tworker
+    from ray_tpu_torch._private.config import config as tconfig
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 2, "num_gpus": 1})
+    try:
+        other = c.add_node(num_cpus=2, num_gpus=1)
+        c.connect(log_to_driver=False)
+        c.wait_for_nodes()
+        head = c.nodes[0]
+        runs = os.path.join(c.session_dir, "core_runs.jsonl")
+        pin = dict(num_gpus=1, max_retries=2,
+                   scheduling_strategy=NodeAffinitySchedulingStrategy(
+                       node_id=other.node_id, soft=False))
+        kern = rt.remote(core_kernel_outputs).options(num_returns=4, **pin)
+        base = rt.remote(core_chain_base).options(**pin)
+        double = rt.remote(core_chain_double).options(**pin)
+        refs = list(kern.remote(7, ktol, runs))
+        a = base.remote(8, ktol, runs)
+        b = double.remote(a, ktol, runs)
+        ready, _ = rt.wait(refs + [b], num_returns=len(refs) + 1,
+                           timeout=600, fetch_local=False)
+        if len(ready) != len(refs) + 1:
+            raise AssertionError(f"core-c: {len(ready)} results ready")
+        w = tworker.global_worker()
+        with StorePeak(w.store) as peak:
+            t0 = time.perf_counter()
+            first = rt.get(refs, timeout=300)
+            torch.cuda.synchronize()
+            pull_s = time.perf_counter() - t0
+        first_b = rt.get(b, timeout=300)
+        pulled = sum(x.nbytes for x in first)
+        before = core_runs(runs)
+        for r in refs + [b]:
+            if not w.store.delete(r.binary()):
+                raise AssertionError("core-c: a pulled copy is still pinned")
+        t_kill = time.time()
+        c.remove_node(other)
+        again = rt.get(refs, timeout=CORE_REBUILD_TIMEOUT_S)
+        kernels_s = time.time() - t_kill
+        again_b = rt.get(b, timeout=CORE_REBUILD_TIMEOUT_S)
+        chain_s = time.time() - t_kill
+        worst = 0.0
+        for name, got, want in zip(("O", "dQ", "dK", "dV"), again, first):
+            worst = max(worst, core_same(f"core-c rebuilt {name}", got, want,
+                                         exact, ktol["tol_grad"]))
+        worst = max(worst, core_same("core-c rebuilt chain", again_b,
+                                     first_b, exact, ktol["tol_out"]))
+        every = core_runs(runs)
+    finally:
+        rt.shutdown()
+        c.shutdown()
+    after = every[len(before):]
+    where = {(r["what"], r["node"]) for r in every}
+    want_where = {(what, node) for what in ("kernels", "base", "double")
+                  for node in (other.node_id, head.node_id)}
+    by_what = {}
+    for r in every:
+        by_what.setdefault(r["what"], []).append(r["errors"])
+    # A rebuilt task's K1-K3 errors are its first run's (the same seed);
+    # the second link checks seed 0's inputs, phase 2's.
+    if len(before) != 3 or len(after) != 3 or where != want_where or \
+            any(e[0] != e[1] for e in by_what.values()) or \
+            by_what["double"][0] != errors or \
+            not all(r.get("arg_on_cuda", True) for r in every):
+        raise AssertionError(f"core-c: runs {every}; phase 2's errors "
+                             f"{errors}")
+    launches = {k: sum(r["launches"][k] for r in every)
+                for k in CORE_KERNELS}
+    chunk = int(tconfig.fetch_chunk_bytes)
+    out = {"pull_bytes": pulled, "pull_s": pull_s,
+           "pull_gb_per_s": pulled / pull_s / 1e9,
+           "chunks_per_result": math.ceil(first[0].nbytes / chunk),
+           "head_store_peak_bytes": peak.peak,
+           "kill_to_kernels_s": kernels_s, "kill_to_chain_s": chain_s,
+           "max_abs_err": worst, "bit_for_bit": exact,
+           "launches": launches}
+    log(f"core-c ok: K1-K3 on the worker node ({pulled} B in 4 results of "
+        f"{first[0].nbytes} B, {out['chunks_per_result']} chunks of {chunk} "
+        f"B each) pulled to the head in {pull_s:.3f} s "
+        f"({out['pull_gb_per_s']:.2f} GB/s, rebuilt on cuda), head store "
+        f"peak {peak.peak} B; the head's pulled copies dropped and the "
+        f"worker node removed: the K1-K3 results rebuilt on the head's GPU "
+        f"in {kernels_s:.2f} s and the base -> double chain (both links "
+        f"lost) in {chain_s:.2f} s after the removal, " +
+        ("bit for bit" if exact else f"within phase 2's tolerances "
+                                     f"({worst:.3e})") +
+        f" the first get; each GPU task's K1-K3 within phase 2's "
+        f"tolerances of their plain versions, a rebuilt task's errors its "
+        f"first run's; card: {gpu_line()}")
+    return out
+
+
+def core_checksum(frame, ktol, runs):
+    """22d, a ``num_gpus=1`` task: the sum of a frame's bf16 bit patterns
+    as int16 (exact, in int64); the frame arrives on this worker's GPU."""
+    core_checked("checksum", 0, ktol, runs, arg_on_cuda=frame.is_cuda)
+    return int(frame.view(torch.int16).sum(dtype=torch.int64))
+
+
+def core_frame(seed):
+    """13a's bf16 KV frame at llama-7b width, from ``seed``, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(KV_FRAME_SHAPE, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def core_spill(ktol, errors):
+    """22d: ``CORE_FRAMES`` of 13a's frames, each from its own seed, put
+    from the card into a 1 GiB store: the node manager spills them to
+    disk; each comes back on the card through the store, bit for bit
+    against the frame made again from its seed; a ``num_gpus=1`` task
+    given a spilled one returns its checksum. The store's
+    ``device_staged_bytes`` is charged once a put, and not again on a
+    restore. The node manager's disk writes and reads are timed."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import device_objects as tdo
+    from ray_tpu_torch._private import worker as tworker
+
+    rt.init(num_cpus=2, num_gpus=1, object_store_memory=CORE_STORE_BYTES,
+            log_to_driver=False)
+    try:
+        w, nm = tworker.global_worker(), tworker._global_cluster.nm
+        runs = os.path.join(tworker._global_cluster.session_dir,
+                            "core_runs.jsonl")
+        disk = {"spill": [0, 0.0], "restore": [0, 0.0]}
+        st = nm.external_storage
+        spill, restore = st.spill, st.restore
+
+        def timed_spill(oid, data):
+            t0 = time.perf_counter()
+            url = spill(oid, data)
+            disk["spill"][0] += len(data)
+            disk["spill"][1] += time.perf_counter() - t0
+            return url
+
+        def timed_restore(url):
+            t0 = time.perf_counter()
+            data = restore(url)
+            disk["restore"][0] += len(data)
+            disk["restore"][1] += time.perf_counter() - t0
+            return data
+
+        st.spill, st.restore = timed_spill, timed_restore
+        staged0 = w.store.stats_ex()["device_staged_bytes"]
+        refs, put_s = [], 0.0
+        for i in range(CORE_FRAMES):
+            frame = core_frame(13 + i)
+            nbytes = frame.nbytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refs.append(rt.put(frame))
+            put_s += time.perf_counter() - t0
+            # The driver's same-process registry holds a put tensor only
+            # as long as the tensor lives: with it gone, a get reads the
+            # store (restoring from disk what was spilled).
+            del frame
+        staged1 = w.store.stats_ex()["device_staged_bytes"]
+        end = time.time() + CORE_SPILL_WAIT_S
+        while not nm._spilled and time.time() < end:
+            time.sleep(0.1)
+        spilled_at_put = len(nm._spilled)
+        if not spilled_at_put:
+            raise AssertionError("core-d: nothing spilled")
+        get_s = []
+        hits = tdo.stats()["local_hits"]
+        for i, ref in enumerate(refs):
+            t0 = time.perf_counter()
+            back = rt.get(ref, timeout=120)
+            torch.cuda.synchronize()
+            get_s.append(time.perf_counter() - t0)
+            core_same(f"core-d frame {i}", back, core_frame(13 + i), True,
+                      None)
+            del back
+        if tdo.stats()["local_hits"] != hits:
+            raise AssertionError("core-d: a get was a same-process hit")
+        staged2 = w.store.stats_ex()["device_staged_bytes"]
+        # A frame with its header is more than a quarter of the store, so
+        # the store holds at most 3 of the 6: after the gets at least 3
+        # are out of it, each on disk.
+        gone = [i for i, r in enumerate(refs) if r.binary() in nm._spilled
+                and not w.store.contains(r.binary())]
+        if not gone:
+            raise AssertionError("core-d: no frame is spilled out of the "
+                                 "store")
+        pick = gone[0]
+        want = int(core_frame(13 + pick).view(torch.int16).sum(
+            dtype=torch.int64))
+        task = rt.remote(core_checksum).options(num_gpus=1)
+        got = rt.get(task.remote(refs[pick], ktol, runs), timeout=300)
+        (run,) = core_runs(runs)
+    finally:
+        rt.shutdown()
+    if got != want or run["errors"] != errors or not run["arg_on_cuda"]:
+        raise AssertionError(f"core-d: checksum {got} vs {want}, task {run},"
+                             f" phase 2's errors {errors}")
+    if staged1 - staged0 != CORE_FRAMES * nbytes or staged2 != staged1:
+        raise AssertionError(f"core-d: device_staged_bytes {staged0} -> "
+                             f"{staged1} after the puts -> {staged2} after "
+                             f"the restores; {CORE_FRAMES} x {nbytes} B put")
+    total = CORE_FRAMES * nbytes
+    out = {"frames": CORE_FRAMES, "frame_bytes": nbytes,
+           "store_bytes": CORE_STORE_BYTES, "spilled_objects": spilled_at_put,
+           "put_s": put_s, "put_gb_per_s": total / put_s / 1e9,
+           "spilled_bytes": disk["spill"][0],
+           "spill_gb_per_s": disk["spill"][0] / disk["spill"][1] / 1e9
+           if disk["spill"][1] else None,
+           "restored_bytes": disk["restore"][0],
+           "restore_gb_per_s": disk["restore"][0] / disk["restore"][1] / 1e9
+           if disk["restore"][1] else None,
+           "get_gb_per_s": total / sum(get_s) / 1e9,
+           "device_staged_bytes": [staged0, staged1, staged2],
+           "checksum_frame": pick, "launches": run["launches"]}
+    log(f"core-d ok: {CORE_FRAMES} bf16 frames of {nbytes} B put from "
+        f"cuda:0 into a {CORE_STORE_BYTES} B store in {put_s:.2f} s "
+        f"({out['put_gb_per_s']:.2f} GB/s); {spilled_at_put} spilled by "
+        f"then; the node manager wrote {disk['spill'][0]} B to disk at "
+        f"{out['spill_gb_per_s']} GB/s and read {disk['restore'][0]} B at "
+        f"{out['restore_gb_per_s']} GB/s; every frame got back on cuda bit "
+        f"for bit ({out['get_gb_per_s']:.2f} GB/s with restores); a "
+        f"num_gpus=1 task given spilled frame {pick} returned its checksum "
+        f"{got}; device_staged_bytes {staged0} -> {staged1} -> {staged2} "
+        f"(charged once a put, not on a restore); card: {gpu_line()}")
+    return out
+
+
+def core_phase(fa, ktol, errors):
+    """Phase 22: the runtime core's GPU paths on the port's runtime. (a) and
+    (b) on phase 16's runtime (4 CPUs, the card's GPU), (c) on a two-node
+    ``Cluster``, (d) on a 1 GiB store. ``ktol``: phase 2's bf16 kernel
+    tolerances; ``errors``: phase 2's errors at the training shape."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    exact = core_deterministic(fa)
+    log(f"core: K1-K3 at [{B * H}, {L}, {D}] bf16 causal are "
+        + ("bit-deterministic run to run: results are compared bit for bit"
+           if exact else "not bit-deterministic run to run: results are "
+           "held to phase 2's tolerances"))
+    out = {"bit_deterministic": exact}
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        out["reuse"] = core_reuse(rt, ktol, errors)
+        out["generator"] = core_generator_run(rt, fa, ktol, errors, exact)
+    finally:
+        rt.shutdown()
+    gc_collect()
+    out["lineage"] = core_lineage(ktol, errors, exact)
+    gc_collect()
+    out["spill"] = core_spill(ktol, errors)
+    gc_collect()
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("reuse", "generator", "lineage", "spill"))
+                       for k in CORE_KERNELS}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"core phase ok in {out['phase_s']:.1f} s; K1-K3 launches in its GPU"
+        f" tasks {out['launches']}")
+    log("core metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -5541,10 +6115,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
     ap.add_argument("--only", choices=["sharded", "runtime", "serve", "tune",
-                                       "jobs", "correctness", "gaps"],
+                                       "jobs", "correctness", "gaps", "core"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5705,6 +6280,17 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "core":
+        core = core_phase(fa, bf16, errors)
+        for row in rows:
+            row["core_launches"] = core["launches"][row["name"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
@@ -5717,41 +6303,48 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    moe_train(tm, fa, os.path.join("chiprun_out",
-                                   "profile_moe_train_step.txt")
-              if args.profile else None)
-    torch.cuda.empty_cache()
-    remat(tm, fa)
-    moe_serve(tm, gen, se, args.seed)
-    torch.cuda.empty_cache()
-    serve_check(tm, gen, se)
-    torch.cuda.empty_cache()
-    serve(tm, gen, se, fa, args.seed,
+    # Each later phase's wall seconds, logged at the end: what to cut
+    # first when the whole script nears its time limit.
+    phase_s = {"1-5": time.perf_counter() - t_main}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        gc_collect()
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    timed("6 moe-train", moe_train, tm, fa, os.path.join(
+        "chiprun_out", "profile_moe_train_step.txt") if args.profile
+        else None)
+    timed("7 remat", remat, tm, fa)
+    timed("8 moe-serve", moe_serve, tm, gen, se, args.seed)
+    timed("9 serve-check", serve_check, tm, gen, se)
+    timed("10 serve", serve, tm, gen, se, fa, args.seed,
           os.path.join("chiprun_out", "profile_decode_step.txt")
           if args.profile else None)
-    torch.cuda.empty_cache()
-    rl_phase(args.seed)
-    rl_algo = rl_algo_phase(args.seed)
-    serve_app = serve_app_phase(tm, gen, fa, args.seed)
-    gang = gang_phase(tm, fa, run, args.seed)
-    gc_collect()
-    sharded = sharded_phase(tm, fa, run)
-    gc_collect()
-    runtime = runtime_phase(tm, fa, run, bf16, args.seed,
-                            phase12=rl_algo["ppo"],
-                            in_process=serve_app["kv_frame"])
-    gc_collect()
-    serve_plane_phase(tm, gen, args.seed, in_process=serve_app["app"])
-    gc_collect()
-    tuned = tune_phase(tm, fa, run, bf16, errors)
-    gc_collect()
-    jobs = jobs_phase(tm, fa, run, bf16, errors)
-    gc_collect()
-    correct = correctness_phase(tm, fa, run,
-                                step16_ms=runtime["train"]["step_ms"])
-    gc_collect()
-    gaps = gaps_phase(tm, fa, run, bf16, errors, frame16=runtime["frame"])
+    timed("11 rl", rl_phase, args.seed)
+    rl_algo = timed("12 rl-algo", rl_algo_phase, args.seed)
+    serve_app = timed("13 serve-app", serve_app_phase, tm, gen, fa,
+                      args.seed)
+    gang = timed("14 gang", gang_phase, tm, fa, run, args.seed)
+    sharded = timed("15 sharded", sharded_phase, tm, fa, run)
+    runtime = timed("16 runtime", runtime_phase, tm, fa, run, bf16,
+                    args.seed, phase12=rl_algo["ppo"],
+                    in_process=serve_app["kv_frame"])
+    timed("17 serve-plane", serve_plane_phase, tm, gen, args.seed,
+          in_process=serve_app["app"])
+    tuned = timed("18 tune", tune_phase, tm, fa, run, bf16, errors)
+    jobs = timed("19 jobs", jobs_phase, tm, fa, run, bf16, errors)
+    correct = timed("20 correctness", correctness_phase, tm, fa, run,
+                    step16_ms=runtime["train"]["step_ms"])
+    gaps = timed("21 gaps", gaps_phase, tm, fa, run, bf16, errors,
+                 frame16=runtime["frame"])
+    core = timed("22 core", core_phase, fa, bf16, errors)
+    log(f"phase seconds: {json.dumps(phase_s)}; all "
+        f"{time.perf_counter() - t_main:.1f} s")
     for row in rows:
+        row["core_launches"] = core["launches"][row["name"]]
         row["gaps_launches"] = gaps["death_push"]["launches_per_step"][
             row["name"]]
         row["correctness_launches"] = correct["modes"]["launches"][

@@ -374,14 +374,19 @@ class LeaseManager:
     def classic_route(self, resources: Dict[str, float]) -> bool:
         """Lock-free: True when a submission of this shape cannot ride a
         lease RIGHT NOW — no lease exists and the shape is either inside
-        its denial backoff or still waiting on a grant. Lets the caller
-        skip spec-object construction entirely and ship template-patched
-        bytes (submit_classic_patch). Sustained infeasible/over-capacity
-        floods then stream down the blob route instead of convoying
-        through queue-and-drain cycles; the few specs a feasible shape
-        submits between its first queue-and-request and the grant
-        landing take the scheduled path — always correct, just not
-        direct. All reads are GIL-atomic snapshots; staleness only costs
+        its denial backoff or already queues more than the grants it
+        waits on can take (``lease_pipeline_depth`` each). Lets the
+        caller skip spec-object construction entirely and ship
+        template-patched bytes (submit_classic_patch). Sustained
+        infeasible/over-capacity floods then stream down the blob route
+        instead of convoying through queue-and-drain cycles.
+
+        A burst the pending grants can take queues for them instead: a
+        spec sent down the scheduled path while its caller's grants are
+        pending waits in the GCS's queue behind those very grants, and
+        the GCS's fairness pass then revokes the caller's own local
+        leases until it places (the reference routes every such spec
+        there). All reads are GIL-atomic snapshots; staleness only costs
         one spec the slower trip."""
         if not self._batch_frames or self._closed:
             return False
@@ -389,9 +394,11 @@ class LeaseManager:
         if ent is None or ent[0] is not resources:
             return False   # first sighting: take the full submit path
         st = self._shapes.get(ent[1])
-        return (st is not None and not st.leases
-                and (st.requesting > 0
-                     or time.monotonic() < st.denied_until))
+        if st is None or st.leases:
+            return False
+        return (time.monotonic() < st.denied_until
+                or (st.requesting > 0
+                    and len(st.queue) >= st.requesting * self._depth))
 
     def submit_classic(self, spec) -> bool:
         """Take ownership of a spec bound for the GCS-scheduled path:

@@ -228,6 +228,11 @@ def _future_executor() -> _DaemonPool:
     return _future_pool
 
 
+# How long a pull retries a refused connection to the node the object
+# directory lists (``_fetch_from``).
+_FETCH_CONNECT_S = 1.0
+
+
 def _restore_ref(id_bytes: bytes, owner_hint: str) -> ObjectRef:
     return ObjectRef(ObjectID(id_bytes), owner_hint)
 
@@ -809,13 +814,15 @@ class CoreWorker:
             conn = self._nm_conns.get(address)
         return conn if conn is not None and not conn.closed else None
 
-    def nm_conn(self, address: str) -> protocol.Conn:
+    def nm_conn(self, address: str,
+                connect_timeout: float = 30.0) -> protocol.Conn:
         with self._nm_lock:
             conn = self._nm_conns.get(address)
             if conn is not None and not conn.closed:
                 return conn
         conn = protocol.connect(address, handler=self._on_nm_msg,
-                                name=f"{self.role}-nm")
+                                name=f"{self.role}-nm",
+                                timeout=connect_timeout)
         with self._nm_lock:
             existing = self._nm_conns.get(address)
             if existing is not None and not existing.closed:
@@ -1020,6 +1027,10 @@ class CoreWorker:
                     else:
                         still_missing = True
                 if still_missing:
+                    if deadline is not None and time.time() >= deadline:
+                        raise exceptions.GetTimeoutError(
+                            f"{len(pending)} object(s) ready elsewhere but "
+                            f"not pulled within timeout")
                     time.sleep(0.05)
         return failures
 
@@ -1110,7 +1121,12 @@ class CoreWorker:
 
         chunk = int(_cfg.fetch_chunk_bytes)
         try:
-            conn = self.nm_conn(address)
+            # The directory lists a node that sealed this object, so it
+            # was listening: a refused connection means it is gone (the
+            # GCS may not know yet). Fail fast, and let the caller's wait
+            # loop ask the GCS again, rather than retry the connect for
+            # connect()'s default 30 s, past a get's timeout.
+            conn = self.nm_conn(address, connect_timeout=_FETCH_CONNECT_S)
             first = conn.request("fetch_object_chunk", {
                 "object_id": oid, "offset": 0, "length": chunk},
                 timeout=60)
@@ -1239,10 +1255,22 @@ class CoreWorker:
                             protocol.RemoteCallError, TimeoutError,
                             OSError):
                         # Handler-side failures (e.g. StoreFullError during
-                        # restore) must fall through to remote replicas.
-                        ok = False
+                        # restore) must fall through to remote replicas;
+                        # the copy may still be on disk, so the caller's
+                        # wait loop retries until its deadline.
+                        continue
                     if ok and self.store.contains(oid):
                         break
+                    if ok is False:
+                        # The node manager answered: neither in the store
+                        # nor readable from a spill file. The copy is gone
+                        # (evicted or deleted) but the directory still
+                        # lists it. Drop the stale entry, on the conn of
+                        # the next wait, so that wait sees the object lost
+                        # and rebuilds it from its lineage rather than
+                        # naming this node again.
+                        self.gcs.notify("remove_object_location", {
+                            "object_id": oid, "node_id": self.node_id})
                     continue
                 if self._fetch_from(address, oid):
                     break

@@ -20,7 +20,7 @@ import os
 import pytest
 
 import torch_cluster_programs as progs
-from torch_runtimes import deadline, reference_results
+from torch_runtimes import deadline, ports_runtime, reference_results
 
 NAMES = [p.__name__ for p in progs.PROGRAMS["autoscaler"]]
 
@@ -202,3 +202,34 @@ def test_pending_group_places_when_capacity_returns():
     assert waited < 5, waited
     assert placed < 5, placed
     assert table["state"] == "REMOVED", table
+
+
+def test_leased_backlog_is_missing_from_pending_demand():
+    """An open fault of both runtimes (ROADMAP §3), recorded as it stands:
+    tasks the driver pipelines behind its own leased worker (up to
+    ``lease_pipeline_depth``) never reach the GCS's queue, so
+    ``pending_demand``, which the autoscaler reads, shows none of them.
+    On 1 CPU, 8 tasks on one lease: 7 wait, 0 are shown. A repair
+    that makes the backlog visible changes the count asserted here."""
+    import time
+
+    with ports_runtime(num_cpus=1, object_store_memory=64 << 20) as rt:
+        from ray_tpu_torch._private import worker as worker_mod
+
+        @rt.remote
+        def hold(t):
+            time.sleep(t)
+            return 1
+
+        assert rt.get(hold.remote(0), timeout=60) == 1
+        refs = [hold.remote(2.0) for _ in range(8)]
+        time.sleep(0.5)
+        lm = worker_mod.global_worker()._lease_mgr
+        inflight = [l.inflight for st in lm._shapes.values()
+                    for l in st.leases if not l.dead]
+        shown = worker_mod.require_worker().gcs.request(
+            "pending_demand")["tasks"]
+        # One lease holds the 8: one runs, the rest wait behind it.
+        assert len(inflight) == 1 and inflight[0] >= 7, inflight
+        assert shown == []
+        assert rt.get(refs, timeout=60) == [1] * 8

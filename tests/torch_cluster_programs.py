@@ -23,7 +23,7 @@ import traceback
 
 import numpy as np
 
-GROUPS = ("autoscaler", "data", "tune")
+GROUPS = ("autoscaler", "data", "tune", "tune_search")
 # The data and tune groups share one cluster of this size.
 CLUSTER = dict(num_cpus=4, object_store_memory=128 * 1024 * 1024)
 GET_TIMEOUT_S = 120
@@ -127,7 +127,14 @@ def _scaler(rt, provider, **config):
 
 def p_autoscaler_scales_up_and_down(rt, accel, tmp):
     """A saturated head (1 CPU) scales out onto fake nodes; all tasks
-    finish; idle nodes go after ``idle_timeout_s``."""
+    finish; idle nodes go after ``idle_timeout_s``.
+
+    The tasks are ``SPREAD``, which the caller never leases: on the lease
+    path the driver pipelines queued tasks onto its one leased worker,
+    out of the GCS's pending demand, so how many nodes a reconcile asks
+    for hung on when it ran (both runtimes; ROADMAP §3). Here every task
+    the head cannot run waits in the GCS's queue until a node takes it,
+    and the first reconcile waits until the demand shows all three."""
     a = _sub(rt, "autoscaler")
     c = _cluster(rt)
     try:
@@ -138,7 +145,7 @@ def p_autoscaler_scales_up_and_down(rt, accel, tmp):
                                    max_workers=3)],
             max_workers=3, idle_timeout_s=1.5)
 
-        @rt.remote(num_cpus=1)
+        @rt.remote(num_cpus=1, scheduling_strategy="SPREAD")
         def hold(t):
             time.sleep(t)
             return 1
@@ -150,13 +157,15 @@ def p_autoscaler_scales_up_and_down(rt, accel, tmp):
         # the runtime. The waits' times go to stderr either way.
         waits = {}
         launched = 0
+        gcs = _sub(rt, "_private.worker").require_worker().gcs
+        demand, waits["demand"] = _timed_wait(
+            lambda: len(gcs.request("pending_demand")["tasks"]) >= 3)
 
         def reconcile():
             nonlocal launched
             launched += scaler.run_once()["launched"]
             return launched >= 2
 
-        # The demand shows once the submissions reach the GCS.
         up, waits["launch"] = _timed_wait(reconcile)
         t0 = time.time()
         ready = c.wait_for_nodes(timeout=SCALE_WAIT_S)
@@ -173,7 +182,9 @@ def p_autoscaler_scales_up_and_down(rt, accel, tmp):
         left = provider.non_terminated_nodes()
         print(f"p_autoscaler_scales_up_and_down on {rt.__name__}: "
               f"{launched} launched; waits (s) {waits}", file=sys.stderr)
-        return (up or ("launched", launched, "in", waits["launch"]),
+        return ((up and demand) or ("demand shown", demand, "in",
+                                    waits["demand"], "launched", launched,
+                                    "in", waits["launch"]),
                 ready or ("not ready in", waits["ready"]), results,
                 left and (left, "left after", waits["scale_down"]))
     finally:
@@ -980,6 +991,80 @@ def gpt_trial_loop(config):
                           os.environ.get("CUDA_VISIBLE_DEVICES")})
 
 
+# ----------------------------------------------------------- tune search
+# The Tuner tests of tests/test_tune_search.py; the same 4-CPU cluster.
+
+
+def ts_tpe_drives_tuner_end_to_end(rt, accel, tmp):
+    """TPE through the full Tuner loop (configs suggested at launch,
+    completions fed back) reaches the bowl's floor."""
+    tune = _sub(rt, "tune")
+    tr = _sub(rt, "train")
+
+    def bowl(config):
+        x, y = config["x"], config["y"]
+        tune.report({"loss": (x - 0.2) ** 2 + (y + 0.4) ** 2})
+
+    searcher = tune.TPESearcher(metric="loss", mode="min", n_initial=5,
+                                seed=0)
+    grid = tune.Tuner(
+        bowl,
+        param_space={"x": tune.uniform(-1.0, 1.0),
+                     "y": tune.uniform(-1.0, 1.0)},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", num_samples=16,
+            max_concurrent_trials=2, search_alg=searcher),
+        run_config=tr.RunConfig(name="tpe", storage_path=tmp)).fit()
+    return (len(grid), len(searcher._obs),
+            grid.get_best_result().metrics["loss"] < 0.05)
+
+
+def ts_tpe_composes_with_asha(rt, accel, tmp):
+    """Searcher + scheduler: ASHA prunes mid-trial while TPE keeps
+    learning from (possibly pruned) completions."""
+    tune = _sub(rt, "tune")
+    tr = _sub(rt, "train")
+
+    def train_fn(config):
+        m = config["m"]
+        for i in range(8):
+            tune.report({"loss": (m - 0.5) ** 2 + 1.0 / (i + 1)})
+
+    searcher = tune.TPESearcher(metric="loss", mode="min", n_initial=4,
+                                seed=1)
+    grid = tune.Tuner(
+        train_fn, param_space={"m": tune.uniform(0.0, 1.0)},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", num_samples=10,
+            max_concurrent_trials=2, search_alg=searcher,
+            scheduler=tune.ASHAScheduler(
+                metric="loss", mode="min", max_t=8, grace_period=2)),
+        run_config=tr.RunConfig(name="tpe_asha", storage_path=tmp)).fit()
+    return (len(grid), len(searcher._obs) >= 5,
+            grid.get_best_result().metrics["loss"] < 0.5)
+
+
+def ts_hyperband_in_tuner(rt, accel, tmp):
+    tune = _sub(rt, "tune")
+    tr = _sub(rt, "train")
+
+    def train_fn(config):
+        for i in range(9):
+            tune.report({"loss": config["m"] + 1.0 / (i + 1)})
+
+    grid = tune.Tuner(
+        train_fn,
+        param_space={"m": tune.grid_search([0.1 * i for i in range(6)])},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            scheduler=tune.HyperBandScheduler(metric="loss", mode="min",
+                                              max_t=9, reduction_factor=3)),
+        run_config=tr.RunConfig(name="hyperband", storage_path=tmp)).fit()
+    states = {t.state for t in grid._trials}
+    return (states <= {"TERMINATED", "STOPPED"},
+            grid.get_best_result().metrics["loss"] < 0.35)
+
+
 # --------------------------------------------------------------- runners
 
 PROGRAMS = {
@@ -1014,9 +1099,11 @@ PROGRAMS = {
     "tune": [t_tuner_grid, t_asha_stops_bad_trials, t_trial_retry,
              t_pbt_exploits_toward_better_config,
              t_tune_trial_as_multiworker_gang],
+    "tune_search": [ts_tpe_drives_tuner_end_to_end, ts_tpe_composes_with_asha,
+                    ts_hyperband_in_tuner],
 }
 # Groups whose programs share one cluster (the autoscaler's make their own).
-SHARED_CLUSTER = ("data", "tune")
+SHARED_CLUSTER = ("data", "tune", "tune_search")
 
 
 def run_group(rt, accel, group, tmp):

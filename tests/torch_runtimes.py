@@ -124,3 +124,13 @@ def group_results(programs, group, tmp_path_factory):
         else:
             os.environ["OMP_NUM_THREADS"] = old
     return {"ray_tpu": ref, "ray_tpu_torch": port}
+
+
+def same_result(results, name):
+    """Program ``name``'s value, after holding that it ran on both
+    runtimes and gave the same result on each."""
+    ref = results["ray_tpu"][name]
+    port = results["ray_tpu_torch"][name]
+    assert ref[0] == "ok", ref
+    assert port == ref, (port, ref)
+    return port[1]
