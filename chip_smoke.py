@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only correctness  # phases 1-5 and 20 only
     python3 chip_smoke.py --only gaps     # phases 1-5 and 21 only
     python3 chip_smoke.py --only core     # phases 1-5 and 22 only
+    python3 chip_smoke.py --only failures # phases 1-5 and 23 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -152,8 +153,8 @@ Phases, each printed on its own line, each fatal when it fails:
    on 4 ranks in 4 child processes sharing the card over gloo (the card
    holds one NCCL rank; ``backend="gloo"`` is explicit). Phase 4's seed,
    batch, bf16 compute, f32 params, remat "full" and AdamW(3e-4, wd 0.1),
-   each rank drawing phase 4's init and keeping its shards; 4 steps a
-   mesh, the last 3 timed. (a) gpt2-125m on {fsdp 2, tp 2} with the flash
+   each rank drawing phase 4's init and keeping its shards; 2 steps a
+   mesh, the second timed. (a) gpt2-125m on {fsdp 2, tp 2} with the flash
    kernels: the first loss within 1e-3 of phase 4's and the grad norm
    within 1e-3 relative, 24/12/12 launches a step on every rank, K1-K3
    against their plain versions at the local shape [4, 1024, 6, 64]; (b)
@@ -343,6 +344,34 @@ Phases, each printed on its own line, each fatal when it fails:
    charged once a put and not again on a restore. Prints the spill and
    restore GB/s. Each kernel row of the ``{"kernels": ...}`` line gets the
    phase's launches in its GPU tasks as ``core_launches``.
+23. failures: the runtime's fast paths and failure paths with a GPU, twins
+   of the reference's fast-path, GCS fault-tolerance and OOM tests. (a)
+   Phase 16's runtime with every knob at its default: 64 ``num_gpus=1``
+   tasks, each K1 on its own seeded [96, 1024, 64] bf16 causal input
+   (seeds 0-63) returning the f64 sum of its LSE, all in one reused GPU
+   worker, every sum the driver's own K1 bit for bit; the results come
+   back inline (the GCS's inline entries rise by 64, the store's objects
+   do not); then a task returning K1's (O, LSE) as CUDA tensors takes the
+   store path (in the store, no inline entry, ``device_staged_bytes`` up
+   by exactly its bytes) and comes back on the card bit for bit. Prints
+   the burst's tasks/s. (b) On the same runtime: the warm GPU worker's
+   host RSS from the node manager's sampler (torch and the CUDA context
+   included); ``memory_limit_bytes`` set to the node's usage plus 1 GiB
+   at the default threshold; a ``num_gpus=1, max_retries=1`` task whose
+   first attempt holds 2 GiB of host memory (a marker in the session
+   directory tells the attempts apart) is killed by the memory monitor
+   (``oom_kills`` up by 1), its retry's sum is the driver's K1 bit for bit,
+   and the node's ``gpus_free`` is 1 after: the GPU was freed once.
+   Prints kill -> result. (c) A GCS subprocess with durable storage and one
+   node {CPU 2, GPU 1}: a ``num_gpus=1`` actor holding phase 4's train
+   state takes 2 steps, the GCS is SIGKILLed and restarted on its port and
+   storage, the actor takes 2 more; the 4 losses are phase 4's first 4
+   (within 1e-6; bit for bit said so), 24/12/12 launches a step in the
+   actor; after the node rejoined the GCS shows the GPU held, a
+   ``num_gpus=1`` probe stays pending 3 s while the actor lives and, once
+   it is killed, runs K1 = the driver's bit for bit. Prints kill -> rejoin
+   and kill -> the next step. Each kernel row gets the phase's launches in
+   its GPU tasks and actor as ``failures_launches``.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -2682,17 +2711,10 @@ def gang_fit(fa, storage, resume=None):
     return result, launches
 
 
-def gang_trainer(tm, fa, run):
+def gang_trainer(tm, fa, run, spread):
     """14a: the gang trainer on the card at phase 4's size."""
-    # Phase 4's own spread: its steps again, from the same seed.
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
-    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
-                      train_batch(cfg.vocab_size), "gang phase-4 again",
-                      cfg.n_layers)
-    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
     tol = max(GANG_LOSS_ATOL, spread)
-    del again
-    gc_collect()
     with tempfile.TemporaryDirectory(dir="chiprun_out") as storage:
         result, launches = gang_fit(fa, storage)
         hist = result.metrics_history
@@ -2980,12 +3002,12 @@ def ddppo_phase(seed):
     return out
 
 
-def gang_phase(tm, fa, run, seed):
+def gang_phase(tm, fa, run, spread, seed):
     """Phase 14: (a) the gang trainer, (b) two ranks on one card, (c)
     DD-PPO."""
     t0 = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)
-    results = {"trainer": gang_trainer(tm, fa, run)}
+    results = {"trainer": gang_trainer(tm, fa, run, spread)}
     gc_collect()
     results["halves"] = gang_halves(tm)
     gc_collect()
@@ -3000,7 +3022,7 @@ def gang_phase(tm, fa, run, seed):
 # Phase 15: the sharded step on a mesh of 4 ranks sharing the card.
 
 SHARDED_WORLD = 4
-SHARDED_WARMUP, SHARDED_STEPS = 1, 4     # the steps after the first timed
+SHARDED_WARMUP, SHARDED_STEPS = 1, 2     # the steps after the first timed
 # name, mesh axes, config overrides of gpt2-125m (max_seq L, bf16, remat
 # "full"): (a) FSDP x TP with the flash kernels on each rank's local
 # [B/2, L, H/2, D]; (b) sequence x TP with ring attention; (c) phase 6's
@@ -3326,11 +3348,11 @@ def runtime_fit(rt, fa, storage, resume=None):
     return result
 
 
-def runtime_train(rt, tm, fa, run, nm):
+def runtime_train(rt, tm, fa, run, nm, spread):
     """16b: the main path through the port's runtime, at phase 14a's cell
     and gates."""
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
-    tol = loss_tolerance(tm, fa, run, "runtime phase-4 again")
+    tol = max(GANG_LOSS_ATOL, spread)
     steps = WARMUP_STEPS + TIMED_STEPS
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
@@ -3555,7 +3577,8 @@ def runtime_rl(rt, seed, phase12):
     return out
 
 
-def runtime_phase(tm, fa, run, tol, seed, phase12=None, in_process=None):
+def runtime_phase(tm, fa, run, spread, tol, seed, phase12=None,
+                  in_process=None):
     """Phase 16: the port's own runtime on the card."""
     import ray_tpu_torch as rt
     from ray_tpu_torch._private import worker as tworker
@@ -3598,7 +3621,7 @@ def runtime_phase(tm, fa, run, tol, seed, phase12=None, in_process=None):
         out = {"gpu_worker": {k: p[k] for k in (
             "spawn_ms", "process_age_ms", "torch_import_ms",
             "first_cuda_ms", "errors", "launches")}}
-        out["train"] = runtime_train(rt, tm, fa, run, nm)
+        out["train"] = runtime_train(rt, tm, fa, run, nm, spread)
         gc_collect()
         out["frame"] = runtime_frame(rt, in_process)
         gc_collect()
@@ -4092,7 +4115,7 @@ class NodeLog:
                 f.write(json.dumps(row) + "\n")
 
 
-def tune_phase(tm, fa, run, tol, errors):
+def tune_phase(tm, fa, run, spread, tol, errors):
     """Phase 18: the sweep on an autoscaled GPU node."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import data as rd
@@ -4104,13 +4127,7 @@ def tune_phase(tm, fa, run, tol, errors):
     os.makedirs("chiprun_out", exist_ok=True)
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
     # 16b's tolerance: 1e-6, or phase 4's own spread in this call.
-    again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
-                      train_batch(cfg.vocab_size), "tune phase-4 again",
-                      cfg.n_layers)
-    spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
     loss_tol = max(GANG_LOSS_ATOL, spread)
-    del again
-    gc_collect()
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
     launched = launch_cluster({
@@ -4521,7 +4538,7 @@ c.disconnect()
 """
 
 
-def jobs_phase(tm, fa, run, tol, errors):
+def jobs_phase(tm, fa, run, spread, tol, errors):
     """Phase 19: the head from the CLI, the dashboard, a job's durable
     workflow of GPU steps with a resume, a thin client's GPU task, stop."""
     import ray_tpu_torch as rt
@@ -4532,7 +4549,7 @@ def jobs_phase(tm, fa, run, tol, errors):
 
     t_phase = time.perf_counter()
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
-    loss_tol = loss_tolerance(tm, fa, run, "jobs phase-4 again")
+    loss_tol = max(GANG_LOSS_ATOL, spread)
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
     steps = JOBS_FIRST + JOBS_SECOND
@@ -4814,16 +4831,18 @@ print("LINT " + json.dumps({"rc": rc, "s": time.perf_counter() - t0,
 """
 
 
-def loss_tolerance(tm, fa, run, label):
-    """16b's tolerance: 1e-6, or phase 4's own spread in this call (phase
-    4's steps once more, against ``run``)."""
+def phase4_spread(tm, fa, run):
+    """Phase 4's own spread in this call: its steps once more, from the
+    same seed, against ``run``. The later phases hold their losses to
+    phase 4's within 1e-6 or this, whichever is larger."""
     cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
     again = run_steps(fa, new_state(tm, cfg), tm.make_train_step(cfg),
-                      train_batch(cfg.vocab_size), label, cfg.n_layers)
+                      train_batch(cfg.vocab_size), "phase-4 again",
+                      cfg.n_layers)
     spread = max(abs(a - b) for a, b in zip(again.losses, run.losses))
     del again
     gc_collect()
-    return max(GANG_LOSS_ATOL, spread)
+    return spread
 
 
 def _rss_mib(pid):
@@ -5147,11 +5166,11 @@ def correctness_modes(tm, fa, run, tol, step16_ms):
     return out
 
 
-def correctness_phase(tm, fa, run, step16_ms=None):
+def correctness_phase(tm, fa, run, spread, step16_ms=None):
     """Phase 20: the port's lint and its two correctness modes."""
     t0 = time.perf_counter()
     out = {"lint": correctness_lint()}
-    tol = loss_tolerance(tm, fa, run, "correctness phase-4 again")
+    tol = max(GANG_LOSS_ATOL, spread)
     out["modes"] = correctness_modes(tm, fa, run, tol, step16_ms)
     out["phase_s"] = time.perf_counter() - t0
     log(f"correctness phase ok in {out['phase_s']:.1f} s")
@@ -5539,14 +5558,14 @@ def gaps_off_switches(tm, fa, run, tol, ktol, errors, on):
     return out
 
 
-def gaps_phase(tm, fa, run, ktol, errors, frame16=None):
+def gaps_phase(tm, fa, run, spread, ktol, errors, frame16=None):
     """Phase 21: donation, the death push and the off-switches on the port's
     runtime (4 CPUs, the card's GPU). ``ktol``: phase 2's bf16 kernel
     tolerances; ``errors``: phase 2's errors at the training shape."""
     import ray_tpu_torch as rt
 
     t0 = time.perf_counter()
-    tol = loss_tolerance(tm, fa, run, "gaps phase-4 again")
+    tol = max(GANG_LOSS_ATOL, spread)
     out = {}
     rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
     try:
@@ -6105,6 +6124,379 @@ def core_phase(fa, ktol, errors):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the fast paths and the failure paths with a GPU.
+
+FAIL_BURST = 64                # 23a's tasks, seeds 0 .. 63
+FAIL_TENSOR_SEED = 64          # 23a's task that returns CUDA tensors
+FAIL_OOM_SEED = 65             # 23b's task
+FAIL_PROBE_SEED = 66           # 23c's probe
+FAIL_HEADROOM = 1 << 30        # 23b: the limit is the usage plus this
+FAIL_BALLAST = 2 << 30         # 23b: host bytes of the first attempt
+FAIL_OOM_TIMEOUT_S = 120.0
+FAIL_STEPS = 2                 # 23c: steps before the kill and after it
+FAIL_PENDING_S = 3.0           # 23c: the probe waits this long, pending
+FAIL_REJOIN_TIMEOUT_S = 60.0
+
+
+def failures_k1(seed):
+    """K1's (O, LSE) for ``seed``'s inputs at the training shape (q, k, v
+    of [B * H, L, D] bf16, causal)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = kernel_inputs(B * H, L, L, D, torch.bfloat16, seed)
+    return fa.flash_forward(q, k, v, scale=D ** -0.5, causal=True)
+
+
+def failures_lse_sum(seed):
+    """In a ``num_gpus=1`` task: K1 on ``seed``'s inputs, and the f64 sum
+    of its LSE, with this process and its K1-K3 launches in the task."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    before = core_launches(fa)
+    _, lse = failures_k1(seed)
+    total = lse.double().sum().item()
+    after = core_launches(fa)
+    return {"sum": total, "pid": os.getpid(),
+            "launches": {k: after[k] - before[k] for k in after},
+            "t": time.time()}
+
+
+def failures_k1_tensors(seed):
+    """In a ``num_gpus=1`` task: K1's (O, LSE) as CUDA tensors, and its
+    K1-K3 launches in the task."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    before = core_launches(fa)
+    o, lse = failures_k1(seed)
+    after = core_launches(fa)
+    return o, lse, {k: after[k] - before[k] for k in after}
+
+
+def failures_ballast(marker, seed):
+    """23b, ``num_gpus=1, max_retries=1``: the first attempt (no ``marker``
+    yet) writes the marker and holds ``FAIL_BALLAST`` bytes of host memory
+    until the memory monitor kills its process; a later attempt runs
+    ``failures_lse_sum``."""
+    if not os.path.exists(marker):
+        with open(marker, "w") as f:
+            json.dump({"pid": os.getpid(), "t": time.time()}, f)
+        ballast = np.ones(FAIL_BALLAST // 8, np.float64)
+        time.sleep(FAIL_OOM_TIMEOUT_S)
+        raise AssertionError(f"failures-b: {ballast.nbytes} bytes held and "
+                             f"never killed")
+    return failures_lse_sum(seed)
+
+
+def failures_want(seeds):
+    """The driver's own K1 LSE sums for ``seeds`` (comparisons, not
+    counted)."""
+    out = {}
+    for seed in seeds:
+        _, lse = failures_k1(seed)
+        out[seed] = lse.double().sum().item()
+    return out
+
+
+def failures_burst(rt, nm, want):
+    """23a: ``FAIL_BURST`` GPU tasks through the fast paths at their
+    defaults, then one task whose result is CUDA tensors."""
+    from ray_tpu_torch._private import worker as tworker
+
+    w = tworker.global_worker()
+    fn = rt.remote(failures_lse_sum).options(num_gpus=1)
+    # The burst's worker, warm: its cold start is not the burst's rate.
+    # The warm-up's ref stays held, so its inline entry stays counted.
+    warm_ref = fn.remote(0)
+    warm = rt.get(warm_ref, timeout=300)
+    objects0 = w.store.stats()["num_objects"]
+    inline0 = w.gcs.request("control_plane_stats")["inline_objects"]
+    t0 = time.perf_counter()
+    refs = [fn.remote(seed) for seed in range(FAIL_BURST)]
+    got = rt.get(refs, timeout=300)
+    burst_s = time.perf_counter() - t0
+    objects1 = w.store.stats()["num_objects"]
+    end = time.time() + 10
+    while True:
+        inline1 = w.gcs.request("control_plane_stats")["inline_objects"]
+        if inline1 - inline0 >= FAIL_BURST or time.time() > end:
+            break
+        time.sleep(0.05)
+    cached = sum(r.binary() in w._inline for r in refs)
+    del warm_ref
+    pids = sorted({g["pid"] for g in got} | {warm["pid"]})
+    wrong = [s for s, g in zip(range(FAIL_BURST), got)
+             if g["sum"] != want[s]]
+    one = {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if len(pids) != 1 or wrong or any(g["launches"] != one for g in got):
+        raise AssertionError(f"failures-a: pids {pids}, seeds off the "
+                             f"driver's K1 {wrong}, launches "
+                             f"{[g['launches'] for g in got][:3]}")
+    if objects1 != objects0 or inline1 - inline0 < FAIL_BURST:
+        raise AssertionError(f"failures-a: store objects {objects0} -> "
+                             f"{objects1}, GCS inline entries {inline0} -> "
+                             f"{inline1}")
+    staged0 = w.store.stats_ex()["device_staged_bytes"]
+    ref = rt.remote(failures_k1_tensors).options(num_gpus=1).remote(
+        FAIL_TENSOR_SEED)
+    o, lse, tensor_launches = rt.get(ref, timeout=300)
+    staged1 = w.store.stats_ex()["device_staged_bytes"]
+    wo, wlse = failures_k1(FAIL_TENSOR_SEED)
+    core_same("failures-a O", o, wo, True, None)
+    core_same("failures-a LSE", lse, wlse, True, None)
+    nbytes = o.nbytes + lse.nbytes
+    stored = w.store.contains(ref.binary())
+    if not stored or ref.binary() in w._inline or \
+            staged1 - staged0 != nbytes or tensor_launches != one:
+        raise AssertionError(f"failures-a: the tensor result in the store "
+                             f"{stored}, inline {ref.binary() in w._inline}, "
+                             f"staged {staged1 - staged0} bytes of {nbytes}, "
+                             f"launches {tensor_launches}")
+    out = {"tasks_per_s": FAIL_BURST / burst_s, "burst_s": burst_s,
+           "pid": pids[0], "inline_entries": inline1 - inline0,
+           "driver_cached": cached, "store_objects": [objects0, objects1],
+           "tensor_bytes": nbytes, "staged_bytes": staged1 - staged0,
+           "launches": {k: sum(g["launches"][k] for g in got)
+                        + warm["launches"][k] + tensor_launches[k]
+                        for k in CORE_KERNELS}}
+    log(f"failures-a ok: {FAIL_BURST} num_gpus=1 tasks (K1 at [{B * H}, {L}"
+        f", {D}] bf16 causal, seeds 0-{FAIL_BURST - 1}) in one reused GPU "
+        f"worker (pid {pids[0]}), every LSE sum = the driver's K1 bit for "
+        f"bit; results inline ({inline1 - inline0} GCS inline entries, "
+        f"{cached} in the driver's cache, store objects {objects0} -> "
+        f"{objects1}); {out['tasks_per_s']:.1f} tasks/s over the burst "
+        f"({burst_s:.3f} s); a task's CUDA (O, LSE) took the store path "
+        f"({nbytes} bytes staged, no inline entry) and came back bit for "
+        f"bit; card: {gpu_line()}")
+    return out
+
+
+def failures_oom(rt, nm, want):
+    """23b: the memory monitor kills a GPU task's worker past a limit set
+    from the node's usage with its warm GPU worker (23a's), and the task's
+    retry runs K1 in a fresh one."""
+    import threading
+
+    from ray_tpu_torch._private import worker as tworker
+    from ray_tpu_torch._private.config import config as tconfig
+
+    w = tworker.global_worker()
+    with nm._lock:
+        workers = [x for x in nm._workers.values() if x.proc.poll() is None]
+        gpu = [x for x in workers if x.gpu_ids]
+    usage = sum(nm._proc_rss(x.proc.pid) for x in workers) + \
+        w.store.stats().get("used_bytes", 0)
+    gpu_rss = [nm._proc_rss(x.proc.pid) for x in gpu]
+    threshold = float(tconfig.memory_usage_threshold)
+    limit = int((usage + FAIL_HEADROOM) / threshold)
+    kills0 = nm.oom_kills
+    marker = os.path.join(tworker._global_cluster.session_dir,
+                          "failures_oom_attempt")
+    seen = {}
+
+    def watch():
+        end = time.time() + FAIL_OOM_TIMEOUT_S
+        while time.time() < end and "stop" not in seen:
+            if nm.oom_kills > kills0:
+                seen["t"] = time.time()
+                return
+            time.sleep(0.01)
+
+    th = threading.Thread(target=watch, daemon=True, name="failures-oom")
+    th.start()
+    tconfig.set("memory_limit_bytes", limit)
+    try:
+        got = rt.get(rt.remote(failures_ballast).options(
+            num_gpus=1, max_retries=1).remote(marker, FAIL_OOM_SEED),
+            timeout=FAIL_OOM_TIMEOUT_S + 60)
+        t_result = time.time()
+    finally:
+        tconfig.set("memory_limit_bytes", 0)
+        seen["stop"] = True
+        th.join(5)
+    with open(marker) as f:
+        first = json.load(f)
+    hw = nm._sample_hardware(None, None)
+    if nm.oom_kills - kills0 != 1 or "t" not in seen or \
+            got["pid"] == first["pid"] or got["sum"] != want[FAIL_OOM_SEED] \
+            or hw["gpus_free"] != 1:
+        raise AssertionError(f"failures-b: {nm.oom_kills - kills0} OOM "
+                             f"kills, first attempt {first}, retry {got}, "
+                             f"want sum {want[FAIL_OOM_SEED]}, gpus_free "
+                             f"{hw['gpus_free']}")
+    out = {"usage_bytes": usage, "gpu_worker_rss_bytes": gpu_rss,
+           "limit_bytes": limit, "threshold": threshold,
+           "kill_to_result_s": t_result - seen["t"],
+           "alloc_to_kill_s": seen["t"] - first["t"],
+           "gpus_free": hw["gpus_free"], "launches": got["launches"]}
+    log(f"failures-b ok: the warm GPU worker's host RSS "
+        f"{[r >> 20 for r in gpu_rss]} MiB (torch and the CUDA context), "
+        f"node usage {usage >> 20} MiB; memory_limit_bytes {limit >> 20} "
+        f"MiB (usage + {FAIL_HEADROOM >> 20} MiB at threshold {threshold});"
+        f" a num_gpus=1, max_retries=1 task's first attempt (pid "
+        f"{first['pid']}) held {FAIL_BALLAST >> 20} MiB and the monitor "
+        f"killed it {out['alloc_to_kill_s']:.2f} s after it began (1 OOM "
+        f"kill); the retry (pid {got['pid']}) = the driver's K1 bit for "
+        f"bit, kill -> result {out['kill_to_result_s']:.2f} s; gpus_free "
+        f"{hw['gpus_free']} after; card: {gpu_line()}")
+    return out
+
+
+class FailuresTrainer:
+    """23c, a ``num_gpus=1`` actor: phase 4's train state (gpt2-125m from
+    seed 0, AdamW, the seeded batch) on its card."""
+
+    def __init__(self):
+        from ray_tpu_torch import models as tm
+
+        cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L,
+                                  flash_attention=True)
+        self.state = new_state(tm, cfg)
+        self.step = tm.make_train_step(cfg)
+        self.batch = train_batch(cfg.vocab_size)
+
+    def steps(self, n):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        before = core_launches(fa)
+        losses = []
+        for _ in range(n):
+            self.state, metrics = self.step(self.state, self.batch)
+            losses.append(metrics["loss"].item())
+        after = core_launches(fa)
+        return {"losses": losses, "pid": os.getpid(), "t": time.time(),
+                "launches": {k: after[k] - before[k] for k in after}}
+
+
+def failures_gcs(run, want):
+    """23c: a GCS subprocess with durable storage and one node {CPU 2,
+    GPU 1}; the GCS SIGKILLed and restarted on its port and storage under
+    a ``num_gpus=1`` actor that trains."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.gcs_launcher import GcsProcess
+    from ray_tpu_torch._private.node_manager import NodeManager
+
+    with tempfile.TemporaryDirectory(
+            dir=os.path.abspath("chiprun_out")) as tmp:
+        storage = os.path.join(tmp, "gcs.db")
+        session = os.path.join(tmp, "session")
+        box = {"gcs": GcsProcess(session_dir=session,
+                                 storage_path=storage)}
+        nm = NodeManager(gcs_address=box["gcs"].address, session_dir=session,
+                         num_cpus=2, num_gpus=1,
+                         object_store_memory=256 << 20, is_head=True,
+                         node_name="head")
+        try:
+            rt.init(address=box["gcs"].address, log_to_driver=False)
+            try:
+                return failures_gcs_run(rt, box, nm, session, storage, run,
+                                        want)
+            finally:
+                rt.shutdown()
+        finally:
+            nm.shutdown()
+            box["gcs"].terminate()
+
+
+def failures_gcs_run(rt, box, nm, session, storage, run, want):
+    """23c's steps, kill and restart; ``box["gcs"]`` is the live GCS."""
+    import signal
+
+    from ray_tpu_torch._private.gcs_launcher import GcsProcess
+
+    gcs = box["gcs"]
+    actor = rt.remote(FailuresTrainer).options(num_gpus=1).remote()
+    before = rt.get(actor.steps.remote(FAIL_STEPS), timeout=600)
+    port = int(gcs.address.rsplit(":", 1)[1])
+    old_conn = nm.gcs
+    t_kill = time.time()
+    os.kill(gcs.pid, signal.SIGKILL)
+    gcs.proc.wait(timeout=30)
+    box["gcs"] = GcsProcess(session_dir=session, port=port,
+                            storage_path=storage)
+    while nm.gcs is old_conn:
+        if time.time() - t_kill > FAIL_REJOIN_TIMEOUT_S:
+            raise AssertionError("failures-c: the node never rejoined")
+        time.sleep(0.01)
+    t_rejoin = time.time()
+    after = rt.get(actor.steps.remote(FAIL_STEPS), timeout=600)
+    avail = rt.available_resources().get("GPU", 0.0)
+    total = rt.cluster_resources().get("GPU", 0.0)
+    probe = rt.remote(failures_lse_sum).options(num_gpus=1).remote(
+        FAIL_PROBE_SEED)
+    ready, _ = rt.wait([probe], timeout=FAIL_PENDING_S)
+    losses = before["losses"] + after["losses"]
+    rt.kill(actor)
+    got = rt.get(probe, timeout=300)
+    per_step = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    want_launches = {k: v * FAIL_STEPS for k, v in per_step.items()}
+    exact = losses == run.losses[:2 * FAIL_STEPS]
+    err = max(abs(a - b) for a, b in zip(losses, run.losses))
+    if err > GANG_LOSS_ATOL or before["pid"] != after["pid"] or \
+            before["launches"] != want_launches or \
+            after["launches"] != want_launches:
+        raise AssertionError(f"failures-c: losses {losses} vs phase 4's "
+                             f"{run.losses[:2 * FAIL_STEPS]}, pids "
+                             f"{before['pid']} {after['pid']}, launches "
+                             f"{before['launches']} {after['launches']}")
+    if avail != 0.0 or total != 1.0 or ready or \
+            got["sum"] != want[FAIL_PROBE_SEED]:
+        raise AssertionError(f"failures-c: after the rejoin GPU available "
+                             f"{avail} of {total}; the probe ready while "
+                             f"the actor lived {bool(ready)}; its sum "
+                             f"{got['sum']} vs {want[FAIL_PROBE_SEED]}")
+    out = {"kill_to_rejoin_s": t_rejoin - t_kill,
+           "kill_to_next_step_s": after["t"] - t_kill,
+           "losses": losses, "bit_for_bit": exact, "loss_err": err,
+           "launches": {k: before["launches"][k] + after["launches"][k]
+                        + got["launches"][k] for k in CORE_KERNELS}}
+    log(f"failures-c ok: a num_gpus=1 actor (pid {before['pid']}) holding "
+        f"phase 4's train state took {FAIL_STEPS} steps, the GCS subprocess"
+        f" was SIGKILLed and restarted on its port and storage, the node "
+        f"rejoined {out['kill_to_rejoin_s']:.2f} s after the kill and the "
+        f"actor's next {FAIL_STEPS} steps ended "
+        f"{out['kill_to_next_step_s']:.2f} s after it; its 4 losses = phase "
+        f"4's first 4 " + ("bit for bit" if exact else f"within {err:.3e}")
+        + f"; after the rejoin the GCS held the GPU (available {avail} of "
+        f"{total}), a num_gpus=1 probe stayed pending {FAIL_PENDING_S} s "
+        f"while the actor lived, then ran K1 = the driver's bit for bit; "
+        f"24/12/12 launches a step in the actor; card: {gpu_line()}")
+    return out
+
+
+def failures_phase(fa, run):
+    """Phase 23: a GPU task burst through the fast paths and an OOM-killed
+    GPU task on one runtime at its defaults (4 CPUs, the card's GPU), then
+    a GCS SIGKILL under a GPU actor on a split cluster."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as tworker
+
+    t0 = time.perf_counter()
+    want = failures_want(list(range(FAIL_BURST))
+                         + [FAIL_OOM_SEED, FAIL_PROBE_SEED])
+    out = {}
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        nm = tworker._global_cluster.nm
+        out["burst"] = failures_burst(rt, nm, want)
+        out["oom"] = failures_oom(rt, nm, want)
+    finally:
+        rt.shutdown()
+    gc_collect()
+    out["gcs"] = failures_gcs(run, want)
+    gc_collect()
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("burst", "oom", "gcs"))
+                       for k in CORE_KERNELS}
+    if not all(out["launches"].values()):
+        raise AssertionError(f"failures: launches {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"failures phase ok in {out['phase_s']:.1f} s; K1-K3 launches in "
+        f"its GPU tasks and actor {out['launches']}")
+    log("failures metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -6115,7 +6507,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve run's prompts and weights")
     ap.add_argument("--only", choices=["sharded", "runtime", "serve", "tune",
-                                       "jobs", "correctness", "gaps", "core"],
+                                       "jobs", "correctness", "gaps", "core",
+                                       "failures"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -6191,6 +6584,8 @@ def main() -> int:
                      step_ms)
     del state, step, batch
     torch.cuda.empty_cache()
+    spread = phase4_spread(tm, fa, run)
+    log(f"phase 4 against itself: losses within {spread:.3e}")
 
     times, sdpa_bwd = time_kernels(fa)
     rows = []
@@ -6221,7 +6616,7 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     if args.only == "runtime":
-        runtime = runtime_phase(tm, fa, run, bf16, args.seed)
+        runtime = runtime_phase(tm, fa, run, spread, bf16, args.seed)
         for row in rows:
             row["runtime_launches"] = runtime["train"]["launches"][
                 row["name"]]
@@ -6233,7 +6628,7 @@ def main() -> int:
         return 0
 
     if args.only == "tune":
-        tuned = tune_phase(tm, fa, run, bf16, errors)
+        tuned = tune_phase(tm, fa, run, spread, bf16, errors)
         for row in rows:
             row["tune_launches"] = [x["launches_per_step"][row["name"]]
                                     for x in tuned["trials"]]
@@ -6245,7 +6640,7 @@ def main() -> int:
         return 0
 
     if args.only == "jobs":
-        jobs = jobs_phase(tm, fa, run, bf16, errors)
+        jobs = jobs_phase(tm, fa, run, spread, bf16, errors)
         for row in rows:
             row["job_launches"] = jobs["workflow"]["launches_per_step"][
                 row["name"]]
@@ -6257,7 +6652,7 @@ def main() -> int:
         return 0
 
     if args.only == "correctness":
-        correct = correctness_phase(tm, fa, run)
+        correct = correctness_phase(tm, fa, run, spread)
         for row in rows:
             row["correctness_launches"] = correct["modes"]["launches"][
                 row["name"]]
@@ -6269,7 +6664,7 @@ def main() -> int:
         return 0
 
     if args.only == "gaps":
-        gaps = gaps_phase(tm, fa, run, bf16, errors)
+        gaps = gaps_phase(tm, fa, run, spread, bf16, errors)
         for row in rows:
             row["gaps_launches"] = gaps["death_push"]["launches_per_step"][
                 row["name"]]
@@ -6284,6 +6679,17 @@ def main() -> int:
         core = core_phase(fa, bf16, errors)
         for row in rows:
             row["core_launches"] = core["launches"][row["name"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if args.only == "failures":
+        failures = failures_phase(fa, run)
+        for row in rows:
+            row["failures_launches"] = failures["launches"][row["name"]]
         log(json.dumps({"kernels": rows}))
         log(gpu_line())
         log(json.dumps({"ok": True, "device": {
@@ -6327,23 +6733,25 @@ def main() -> int:
     rl_algo = timed("12 rl-algo", rl_algo_phase, args.seed)
     serve_app = timed("13 serve-app", serve_app_phase, tm, gen, fa,
                       args.seed)
-    gang = timed("14 gang", gang_phase, tm, fa, run, args.seed)
+    gang = timed("14 gang", gang_phase, tm, fa, run, spread, args.seed)
     sharded = timed("15 sharded", sharded_phase, tm, fa, run)
-    runtime = timed("16 runtime", runtime_phase, tm, fa, run, bf16,
+    runtime = timed("16 runtime", runtime_phase, tm, fa, run, spread, bf16,
                     args.seed, phase12=rl_algo["ppo"],
                     in_process=serve_app["kv_frame"])
     timed("17 serve-plane", serve_plane_phase, tm, gen, args.seed,
           in_process=serve_app["app"])
-    tuned = timed("18 tune", tune_phase, tm, fa, run, bf16, errors)
-    jobs = timed("19 jobs", jobs_phase, tm, fa, run, bf16, errors)
-    correct = timed("20 correctness", correctness_phase, tm, fa, run,
+    tuned = timed("18 tune", tune_phase, tm, fa, run, spread, bf16, errors)
+    jobs = timed("19 jobs", jobs_phase, tm, fa, run, spread, bf16, errors)
+    correct = timed("20 correctness", correctness_phase, tm, fa, run, spread,
                     step16_ms=runtime["train"]["step_ms"])
-    gaps = timed("21 gaps", gaps_phase, tm, fa, run, bf16, errors,
+    gaps = timed("21 gaps", gaps_phase, tm, fa, run, spread, bf16, errors,
                  frame16=runtime["frame"])
     core = timed("22 core", core_phase, fa, bf16, errors)
+    failures = timed("23 failures", failures_phase, fa, run)
     log(f"phase seconds: {json.dumps(phase_s)}; all "
         f"{time.perf_counter() - t_main:.1f} s")
     for row in rows:
+        row["failures_launches"] = failures["launches"][row["name"]]
         row["core_launches"] = core["launches"][row["name"]]
         row["gaps_launches"] = gaps["death_push"]["launches_per_step"][
             row["name"]]

@@ -45,6 +45,12 @@ if TYPE_CHECKING:
 
 GPU = "GPU"
 
+# Bound on the dial of a leased worker. Its node manager hands a worker out
+# only once it listens, so a refused dial means it died after the grant;
+# ``protocol.connect``'s 30 s default held every spec queued for the shape
+# that long before they fell back to the scheduled path.
+DIRECT_DIAL_S = 5.0
+
 # Lease-grant latency by source ("local" = granted by the caller's own node
 # manager without touching the GCS; "gcs" = the central spillback path).
 _grant_latency = None
@@ -936,7 +942,8 @@ class LeaseManager:
         try:
             conn = protocol.connect(self._direct_address(grant),
                                     handler=self._make_direct_handler(holder),
-                                    name="lease-direct")
+                                    name="lease-direct",
+                                    timeout=DIRECT_DIAL_S)
         except BaseException:
             # Never dialed the worker: hand the grant straight back.
             try:
@@ -975,7 +982,7 @@ class LeaseManager:
             conn = protocol.connect(
                 self._direct_address({**rep, "node_id": grant["node_id"]}),
                 handler=self._make_direct_handler(holder),
-                name="lease-direct")
+                name="lease-direct", timeout=DIRECT_DIAL_S)
         except BaseException:
             # Tell the NM the lease is dead too, so a worker that is still
             # spawning for it is not stranded in LEASED forever.

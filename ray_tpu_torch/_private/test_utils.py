@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 import random
 import signal
+import subprocess
 import threading
 import time
 from typing import List, Optional, TYPE_CHECKING
@@ -68,11 +69,19 @@ def kill_any_busy_worker(nm, timeout: float = 10.0) -> Optional[int]:
 def kill_node(cluster, nm) -> None:
     """Abruptly remove a node: SIGKILL its workers, then drop its
     server/GCS connections without graceful teardown (the in-process
-    analog of SIGKILLing a raylet, reference test_utils.py:1423)."""
+    analog of SIGKILLing a raylet, reference test_utils.py:1423). Its
+    zygotes go with it, as a raylet's forked children would: the node
+    leaves the cluster's list, so no later shutdown reaches them."""
     for pid in worker_pids(nm):
         try:
             os.kill(pid, signal.SIGKILL)
         except ProcessLookupError:
+            pass
+    for z in nm._zygotes:
+        try:
+            z["proc"].kill()
+            z["proc"].wait(timeout=5)
+        except (ProcessLookupError, subprocess.TimeoutExpired):
             pass
     nm._shutdown = True  # stop reap/heartbeat/spill loops rescuing it
     try:

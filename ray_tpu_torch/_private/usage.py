@@ -14,10 +14,13 @@ or export them by their own means. Opt out with
 from __future__ import annotations
 
 import json
+import logging
 import os
 import threading
 import time
 from typing import Dict, Optional, Set
+
+logger = logging.getLogger(__name__)
 
 _KV_NS = "usage"
 _lock = threading.Lock()
@@ -102,9 +105,20 @@ def on_driver_disconnect() -> None:
     that survives cleanup and can't be clobbered by concurrent drivers.
     Remote-cluster drivers (no local session dir) fall back to a per-pid
     temp file for the same no-clobber reason.
+
+    The report reads the GCS's KV. A driver whose GCS does not answer one
+    bounded dial skips it: each read would redial the dead GCS for the
+    whole ``gcs_rpc_timeout_s`` window (60 s) before failing, and the
+    report is best-effort.
     """
     try:
         from ray_tpu_torch._private import worker as worker_mod
+        w = worker_mod.global_worker()
+        if w is None:
+            return
+        if not w.gcs.reachable():
+            logger.debug("usage report skipped: the GCS does not answer")
+            return
         cluster = getattr(worker_mod, "_global_cluster", None)
         session_dir = getattr(cluster, "session_dir", None)
         if session_dir:
@@ -115,7 +129,7 @@ def on_driver_disconnect() -> None:
             path = None
         write_usage_report(report_path=path)
     except Exception:
-        pass
+        logger.debug("usage report failed", exc_info=True)
 
 
 def get_usage_stats() -> Optional[dict]:

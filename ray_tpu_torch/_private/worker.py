@@ -488,6 +488,27 @@ class _GcsChannel:
     def closed(self) -> bool:
         return self._conn.closed
 
+    def reachable(self, timeout: float = 1.0) -> bool:
+        """Whether the GCS is there: the connection is open, or a fresh
+        one, dialed and asked one KV read, each bounded by ``timeout``,
+        gets its reply (the next call redials a connection the GCS's
+        restart closed). A listener on the address that does not answer
+        is not the GCS."""
+        if not self._conn.closed:
+            return True
+        try:
+            conn = protocol.connect(self._address, name=self._name,
+                                    timeout=timeout)
+        except ConnectionError:
+            return False
+        try:
+            conn.request("kv_get", {"key": b""}, timeout=timeout)
+            return True
+        except Exception:
+            return False
+        finally:
+            conn.close()
+
     def close(self):
         self._closed = True
         self._conn.close()
@@ -2635,6 +2656,8 @@ def shutdown():
     with _init_lock:
         if _global_worker is not None:
             from ray_tpu_torch._private import usage
+            # raylint: disable-next=blocking-under-lock (the lifecycle
+            # guard below; the report's dial of the GCS is bounded by 1 s)
             usage.on_driver_disconnect()
             # raylint: disable-next=blocking-under-lock (_init_lock is
             # the init/shutdown lifecycle guard: a concurrent init()

@@ -23,7 +23,13 @@ from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private import worker as worker_mod
 
+# ``_lock`` guards the subscriptions; the GCS connection's reader thread
+# takes it to dispatch a push. ``_gcs_lock`` orders the subscribe and
+# unsubscribe requests, and is held across them: a request made under
+# ``_lock`` would wait for a reply that only the reader thread can read,
+# while the reader waits for ``_lock`` to dispatch a push that came first.
 _lock = threading.Lock()
+_gcs_lock = threading.Lock()
 _queues: Dict[str, list] = {}
 _installed = False
 
@@ -41,12 +47,13 @@ class Subscription:
         return self._q.get_nowait()
 
     def unsubscribe(self) -> None:
-        with _lock:
-            subs = _queues.get(self.channel, [])
-            if self in subs:
-                subs.remove(self)
-            if not subs:
-                _queues.pop(self.channel, None)
+        with _gcs_lock:
+            with _lock:
+                subs = _queues.get(self.channel, [])
+                if self in subs:
+                    subs.remove(self)
+                last = not subs and _queues.pop(self.channel, None) is not None
+            if last:
                 try:
                     worker_mod.require_worker().gcs.request(
                         "unsubscribe", {"channel": self.channel})
@@ -76,11 +83,12 @@ def subscribe(channel: str) -> Subscription:
     w = worker_mod.require_worker()
     _install()
     sub = Subscription(channel)
-    with _lock:
-        first = channel not in _queues
-        _queues.setdefault(channel, []).append(sub)
-    if first:
-        w.gcs.request("subscribe", {"channel": channel})
+    with _gcs_lock:
+        with _lock:
+            first = channel not in _queues
+            _queues.setdefault(channel, []).append(sub)
+        if first:
+            w.gcs.request("subscribe", {"channel": channel})
     return sub
 
 

@@ -57,9 +57,12 @@ def summarize_tasks() -> Dict[str, Dict[str, int]]:
 
 
 def get_actor(actor_id_hex: str) -> Optional[Dict[str, Any]]:
-    for a in list_actors():
-        if a.get("actor_id") == actor_id_hex:
-            return a
+    """The actor's entry, found in the whole table (``list_actors`` stops
+    at its ``limit``)."""
+    for a in _gcs().request("list_actors"):
+        aid = a.get("actor_id")
+        if (aid.hex() if hasattr(aid, "hex") else aid) == actor_id_hex:
+            return dict(a, actor_id=actor_id_hex)
     return None
 
 

@@ -23,7 +23,12 @@ comes from the runtime the group was given, never by an import of
 another runtime: ``ray_tpu_torch.experimental.pubsub`` on the port's
 runtime, the ``experimental.pubsub`` attribute of another runtime module
 that has one loaded (the ``ray_tpu`` module, say). The in-process
-``LocalRuntime`` has no GCS, so there the pings alone find a death.
+``LocalRuntime`` has no GCS, so there the pings alone find a death. The
+group subscribes as soon as its ranks exist, then reads each rank's state
+once, by its actor id, through the state API found the same way
+(``runtime_state_api``): a rank that died before the subscription was in
+place sent its push to no one. A runtime with no state API loaded skips
+that read.
 
 A SIGKILLed rank's connections close at once, so a pending ping fails
 before the GCS has heard of the death from the rank's node manager; the
@@ -71,6 +76,19 @@ def runtime_pubsub(runtime: Any):
 
         return pubsub
     return getattr(getattr(runtime, "experimental", None), "pubsub", None)
+
+
+def runtime_state_api(runtime: Any):
+    """The state API module of ``runtime`` (``experimental.state.api``),
+    or None where it has none loaded."""
+    import ray_tpu_torch
+
+    if runtime is ray_tpu_torch:
+        from ray_tpu_torch.experimental.state import api
+
+        return api
+    state = getattr(getattr(runtime, "experimental", None), "state", None)
+    return getattr(state, "api", None)
 
 
 def _metrics():
@@ -325,6 +343,7 @@ class WorkerGroup:
         self._gang_error: Optional[GangMemberDiedError] = None
         self._gang_error_set = threading.Event()
         self._sub = None
+        self._supervisor: Optional[threading.Thread] = None
         self._poisoned = False
         self._stop = threading.Event()
         self._last_alive: Dict[int, float] = {
@@ -362,6 +381,7 @@ class WorkerGroup:
             if runtime_pubsub(self._rt) is not None:
                 self._actor_ids = {w._actor_id.hex(): rank
                                    for rank, w in enumerate(self.workers)}
+                self._subscribe_deaths()
             # All ranks join at once: a torch_dist rendezvous blocks every
             # rank until the whole world has joined. Bounded past the
             # members' own formation budgets.
@@ -377,6 +397,33 @@ class WorkerGroup:
             target=self._supervise_loop, daemon=True,
             name=f"rtpu-gang-supervisor-{group_name}")
         self._supervisor.start()
+
+    def _subscribe_deaths(self):
+        """Subscribe to the GCS's ``actor_state`` push as soon as the ranks
+        exist, then read each rank's state once by its actor id: a rank
+        that died before the subscription was in place sent its push to no
+        one, so only this read can see it. The supervisor thread drains
+        the subscription from then on."""
+        pubsub = runtime_pubsub(self._rt)
+        try:
+            self._sub = pubsub.subscribe("actor_state")
+        except Exception:
+            logger.debug("actor_state pubsub unavailable; death detection "
+                         "falls back to liveness pings only", exc_info=True)
+            return
+        state_api = runtime_state_api(self._rt)
+        if state_api is None:
+            return
+        for aid in self._actor_ids:
+            try:
+                entry = state_api.get_actor(aid)
+            except Exception:
+                logger.debug("could not read rank %d's actor state; the "
+                             "push and the pings still watch it",
+                             self._actor_ids[aid], exc_info=True)
+                continue
+            if entry is not None:
+                self._on_actor_state(entry)
 
     # ------------------------------------------------------- gang liveness
 
@@ -423,16 +470,7 @@ class WorkerGroup:
         coordinator, so the trainer (``gang_error``) and the survivors
         (their watchers) see the death in bounded time, not at the op
         deadline."""
-        sub = None
-        pubsub = runtime_pubsub(self._rt)
-        if pubsub is not None and self._actor_ids:
-            try:
-                sub = pubsub.subscribe("actor_state")
-            except Exception:
-                logger.debug("actor_state pubsub unavailable; death "
-                             "detection falls back to liveness pings only",
-                             exc_info=True)
-        self._sub = sub
+        sub = self._sub
         misses = {rank: 0 for rank in range(self.num_workers)}
         try:
             while not self._stop.wait(self._heartbeat_s):
@@ -592,6 +630,16 @@ class WorkerGroup:
         cooperative teardown and kill them; a fresh gang under a fresh
         group name replaces them."""
         self._stop.set()
+        if self._supervisor is None and self._sub is not None:
+            # Formation failed after the subscription: no supervisor
+            # thread will unsubscribe it.
+            sub, self._sub = self._sub, None
+            try:
+                sub.unsubscribe()
+            # raylint: disable-next=exception-swallow (teardown of a
+            # failed formation: the caller re-raises the real error)
+            except Exception:
+                pass
         if graceful and self._gang_error is None:
             try:
                 self._rt.get([w.teardown.remote() for w in self.workers],

@@ -47,3 +47,7 @@ def test_poison_unwedges_pending_collective(gang_cluster):
 
 def test_death_push_detects_sigkill(gang_cluster, tmp_path):
     gp.death_push_detects_sigkill(ray_tpu, tmp_path)
+
+
+def test_death_push_before_first_heartbeat(gang_cluster, tmp_path):
+    gp.death_push_before_first_heartbeat(ray_tpu, tmp_path)

@@ -2,7 +2,9 @@
 (``ray_tpu_torch``): the checks of ``torch_gang_programs`` that
 ``test_torch_gang_fault_tolerance`` runs on ``ray_tpu`` — SIGKILL
 recovery, poll isolation, poisoning of a pending collective, and the
-supervisor's GCS death push with its pings unable to fail."""
+supervisor's GCS death push with its pings unable to fail; and, on this
+runtime alone, the group's one read of its ranks' states, which finds a
+rank that died before the group subscribed."""
 
 import pytest
 import torch
@@ -50,3 +52,14 @@ def test_death_push_detects_sigkill(rt, tmp_path):
     with deadline(what="the death push on the port's runtime"):
         took = gp.death_push_detects_sigkill(rt, tmp_path)
     print(f"death push: detected {took:.3f} s after the SIGKILL")
+
+
+def test_death_push_before_first_heartbeat(rt, tmp_path):
+    with deadline(what="an early death push on the port's runtime"):
+        gp.death_push_before_first_heartbeat(rt, tmp_path)
+
+
+def test_death_before_subscription_found_by_the_read(rt, tmp_path):
+    with deadline(what="the read of the ranks' states on the port's "
+                       "runtime"):
+        gp.death_before_subscription_found_by_the_read(rt, tmp_path)

@@ -14,7 +14,11 @@ frames, batched task_done, inline returns, local actor creation, the
 zygote). ``fp_all_on`` and ``fp_all_off`` run the workload with every
 fast path on and off. The runtimes' private attributes read here have the
 same names on both (the port's runtime is the reference's with its names
-swapped), so each program's results compare with ``==``.
+swapped), so each program's results compare with ``==``. The
+"submit_tests" and "inline" groups hold the tests of
+``test_submit_fastpath.py`` and ``test_inline_returns.py`` whose result
+is a value, each the body of the reference test of the same name, as in
+``torch_api_programs``.
 
 The module imports neither runtime, nor jax: a worker of the port's
 runtime that unpickles one of its functions by name imports it and stays
@@ -24,11 +28,14 @@ free of both.
 from __future__ import annotations
 
 import importlib
+import os
 import platform
 import sys
 import threading
 import time
 import traceback
+
+from torch_api_programs import MiB, cluster, raises
 
 T = 60    # seconds: every get is bounded, so a stuck runtime fails fast
 
@@ -107,6 +114,15 @@ def workload(rt):
             "wait": [len(ready), len(rest)], "counts": counts, "put": put}
 
 
+# What ``workload`` returns on either runtime, with any fast path on or
+# off.
+WORKLOAD_RESULT = {
+    "leased": [2 * i for i in range(64)],
+    "scheduled": [2 * i for i in range(8)], "chain": 8,
+    "arr": [49995000, 10000], "err": True, "wait": [4, 0],
+    "counts": [1, 2, 3], "put": {"a": [1, 2, 3]}}
+
+
 def _run(rt, knobs, probe):
     """``init`` with ``knobs``, the workload, then ``probe(rt, f)`` where
     ``f`` is a remote function already called 20 times; one cluster."""
@@ -127,9 +143,37 @@ def _absorb_threads():
                for t in threading.enumerate())
 
 
+def _leases_returned(rt):
+    """Wait, up to ``T``, until the driver's lease manager holds no lease
+    and its node's ledger has every CPU back. The leases of the calls just
+    made stay held for ``lease_idle_timeout_s`` after their last task, and
+    an actor made while they hold the node's CPUs is placed centrally:
+    what ``_local_placement`` reads would then be the timing of the lease
+    returns, not local actor creation."""
+    lm = _worker(rt)._lease_mgr
+    if lm is None:
+        return
+    nm = _cluster(rt).nm
+    total = nm._total_resources["CPU"]
+    deadline = time.time() + T
+    while True:
+        with lm._lock:
+            held = any(st.leases for st in lm._shapes.values())
+        with nm._lock:
+            free = nm._local_avail.get("CPU")
+        if not held and free >= total:
+            return
+        if time.time() > deadline:
+            raise AssertionError(f"leases still held after {T} s: "
+                                 f"{free} of {total} CPUs free")
+        time.sleep(0.05)
+
+
 def _local_placement(rt):
     """Whether the GCS placed a fresh actor through its node manager's
-    ledger (local actor creation)."""
+    ledger (local actor creation), once the caller's leases are back in
+    that ledger."""
+    _leases_returned(rt)
     c = rt.remote(Counter).remote()
     rt.get(c.incr.remote(), timeout=T)
     gcs = _cluster(rt).gcs
@@ -274,6 +318,200 @@ def fp_all_off(rt, accel, tmp):
     return _run(rt, ALL_OFF, probe)
 
 
+# ------------------------------------------- the fast-path files' programs
+# The tests of tests/test_submit_fastpath.py and test_inline_returns.py
+# whose result is a value, each the body of the reference test of the
+# same name (without ``test_``) on the cluster its fixture starts.
+
+FASTPATH = dict(num_cpus=2, object_store_memory=128 * MiB)
+INLINE_PAYLOAD = b"p" * 512
+
+
+def _fastpath(**system_config):
+    return dict(FASTPATH, _system_config=system_config or None)
+
+
+@cluster(**FASTPATH)
+def remote_uses_template_and_matches_classic(rt, accel, tmp):
+    config = _mod(rt, "config").config
+
+    @rt.remote
+    def double(x):
+        return 2 * x
+
+    on = rt.get([double.remote(i) for i in range(20)], timeout=T)
+    built = double._submit_template.tpl is not None
+    old = config.submit_spec_template_enabled
+    config.set("submit_spec_template_enabled", False)
+    try:
+        off = rt.get([double.remote(i) for i in range(20)], timeout=T)
+    finally:
+        config.set("submit_spec_template_enabled", old)
+    return on, built, off
+
+
+@cluster(**FASTPATH)
+def closure_captured_remote_function_after_template_build(rt, accel, tmp):
+    @rt.remote
+    def inner(x):
+        return x * 2
+
+    # Build inner's template in the driver first.
+    first = rt.get([inner.remote(i) for i in range(4)], timeout=T)
+    built = inner._submit_template.tpl is not None
+
+    @rt.remote
+    def outer(x):
+        return rt.get(inner.remote(x)) + 1
+
+    return first, built, rt.get(outer.remote(5), timeout=60)
+
+
+def _store_objects(rt):
+    return _worker(rt).store.stats()["num_objects"]
+
+
+@cluster(**FASTPATH)
+def inline_roundtrip_zero_store_puts(rt, accel, tmp):
+    @rt.remote
+    def nop():
+        return 41
+
+    warm = rt.get(nop.remote(), timeout=60)   # warm the lease
+    before = _store_objects(rt)
+    refs = [nop.remote() for _ in range(40)]
+    vals = rt.get(refs, timeout=60)
+    return warm, vals, _store_objects(rt) - before
+
+
+@cluster(**FASTPATH)
+def inline_result_feeds_downstream_task(rt, accel, tmp):
+    @rt.remote
+    def produce():
+        return {"k": 41}
+
+    @rt.remote
+    def consume(d):
+        return d["k"] + 1
+
+    return rt.get(consume.remote(produce.remote()), timeout=60)
+
+
+def inline_threshold_boundary(rt, accel, tmp):
+    """Both of the reference's cases, ``delta`` 0 and -1, each on its own
+    cluster: {delta: (values right, store objects grown)}."""
+    size = _mod(rt, "serialization").serialize(
+        INLINE_PAYLOAD).total_size()
+    out = {}
+    for delta in (0, -1):
+        rt.init(**_fastpath(worker_inline_return_max=size + delta))
+        try:
+            @rt.remote
+            def pay():
+                return INLINE_PAYLOAD
+
+            warm = rt.get(pay.remote(), timeout=60) == INLINE_PAYLOAD
+            before = _store_objects(rt)
+            refs = [pay.remote() for _ in range(5)]
+            vals = rt.get(refs, timeout=60) == [INLINE_PAYLOAD] * 5
+            out[delta] = (warm and vals, _store_objects(rt) - before)
+        finally:
+            rt.shutdown()
+    return out
+
+
+@cluster(**FASTPATH)
+def get_of_inline_error_raises_original(rt, accel, tmp):
+    @rt.remote(num_returns=3)
+    def fail():
+        raise ValueError("original message")
+
+    a, b, c = fail.remote()
+    before = _store_objects(rt)
+    errs = [raises(lambda r=r: rt.get(r, timeout=60), ValueError,
+                   "original message") for r in (a, b, c)]
+    return errs, _store_objects(rt) - before
+
+
+def inline_table_pressure_spill_bit_identical(rt, accel, tmp):
+    # ~1.2 KiB per result against a 4 KiB per-job table: most results must
+    # materialize into the store, and get() must not notice.
+    rt.init(**_fastpath(gcs_inline_table_bytes=4096))
+    try:
+        @rt.remote
+        def pay(i):
+            return bytes([i % 256]) * 1200
+
+        refs = [pay.remote(i) for i in range(24)]
+        vals = rt.get(refs, timeout=120)
+        right = vals == [bytes([i % 256]) * 1200 for i in range(24)]
+        # The table settles under its per-job budget once the spills' store
+        # copies confirm (keep-until-confirmed is async).
+        w = _worker(rt)
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            stats = w.gcs.request("control_plane_stats", timeout=30)
+            if stats["inline_bytes"] <= 4096:
+                break
+            time.sleep(0.2)
+        # Spilled results are REAL store objects now: still readable.
+        vals2 = rt.get(refs, timeout=120)
+        return right, stats["inline_bytes"] <= 4096, vals2 == vals
+    finally:
+        rt.shutdown()
+
+
+@cluster(**FASTPATH)
+def worker_death_between_batched_completions(rt, accel, tmp):
+    @rt.remote(max_retries=4)
+    def slow(i):
+        time.sleep(0.05)
+        return i * 3
+
+    nm = _cluster(rt).nm
+    refs = [slow.remote(i) for i in range(30)]
+    time.sleep(0.4)   # let the burst start executing
+    with nm._lock:
+        victims = [x for x in nm._workers.values()
+                   if x.current_tasks and x.proc.poll() is None]
+    for v in victims[:1]:
+        try:
+            os.kill(v.proc.pid, 9)
+        except OSError:
+            pass
+    return rt.get(refs, timeout=120)
+
+
+@cluster(**_fastpath(worker_inline_cache_bytes=0))
+def inline_cache_disabled_still_resolves(rt, accel, tmp):
+    @rt.remote
+    def nop(i):
+        return ("v", i)
+
+    refs = [nop.remote(i) for i in range(10)]
+    return rt.get(refs, timeout=60)
+
+
+@cluster(num_cpus=1, object_store_memory=64 * MiB)
+def completion_not_held_behind_slow_successor(rt, accel, tmp):
+    @rt.remote
+    def fast():
+        return "fast"
+
+    @rt.remote
+    def slow():
+        time.sleep(4.0)
+        return "slow"
+
+    rt.get(fast.remote(), timeout=60)   # warm the worker
+    f = fast.remote()
+    s = slow.remote()
+    t0 = time.perf_counter()
+    got = rt.get(f, timeout=10)
+    waited = time.perf_counter() - t0
+    return got, waited < 2.0, rt.get(s, timeout=30)
+
+
 # --------------------------------------------------------------- runners
 
 PROGRAMS = {
@@ -284,6 +522,16 @@ PROGRAMS = {
                    fp_completion_absorb_off, fp_completion_steal_off,
                    fp_worker_completion_ring_off, fp_inline_returns_off,
                    fp_zygote_off, fp_all_off],
+    "submit_tests": [remote_uses_template_and_matches_classic,
+                     closure_captured_remote_function_after_template_build],
+    "inline": [inline_roundtrip_zero_store_puts,
+               inline_result_feeds_downstream_task,
+               inline_threshold_boundary,
+               get_of_inline_error_raises_original,
+               inline_table_pressure_spill_bit_identical,
+               worker_death_between_batched_completions,
+               inline_cache_disabled_still_resolves,
+               completion_not_held_behind_slow_successor],
 }
 
 

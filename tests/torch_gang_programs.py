@@ -313,3 +313,111 @@ def death_push_detects_sigkill(rt, tmp_path):
         return took
     finally:
         group.shutdown(graceful=False)
+
+
+def _actor_dead(rt, actor):
+    """Whether the GCS lists ``actor`` as DEAD (the runtime's own state
+    API, imported by the runtime module's name)."""
+    import importlib
+
+    api = importlib.import_module(f"{rt.__name__}.experimental.state.api")
+    aid = actor._actor_id.hex()
+    return any(a["actor_id"] == aid and a["state"] == "DEAD"
+               for a in api.list_actors())
+
+
+def death_push_before_first_heartbeat(rt, tmp_path):
+    """A rank SIGKILLed after ``start()`` and before the supervisor thread
+    has run at all (its loop held until the GCS lists the rank DEAD, so
+    the push has been published) is still found by the push alone, with
+    the pings unable to fail: the group subscribed when its ranks were
+    made, not in the supervisor thread."""
+    from ray_tpu_torch.exceptions import GangMemberDiedError
+    from ray_tpu_torch.train import worker_group as wg
+
+    side = str(tmp_path / "side")
+    os.makedirs(side, exist_ok=True)
+    gate = threading.Event()
+    loop = wg.WorkerGroup._supervise_loop
+
+    def held_loop(self):
+        gate.wait(60)
+        loop(self)
+
+    wg.WorkerGroup._supervise_loop = held_loop
+    try:
+        group = wg.WorkerGroup(2, {"CPU": 1}, backend="store",
+                               group_name="earlygang",
+                               experiment_name="early", runtime=rt,
+                               device="cpu")
+    finally:
+        wg.WorkerGroup._supervise_loop = loop
+    group._ping_round = lambda misses: None
+    try:
+        group.start(poll_gang_loop, {"side_dir": side}, None)
+        wait_for(lambda: _read_pid(side, 1) is not None, 30,
+                 "rank 1's pid")
+        os.kill(_read_pid(side, 1), signal.SIGKILL)
+        wait_for(lambda: _actor_dead(rt, group.workers[1]), 30,
+                 "the GCS to list rank 1 DEAD")
+        gate.set()
+        t_open = time.time()
+        wait_for(lambda: group.gang_error is not None,
+                 timeout=HEARTBEAT_S + SLACK_S,
+                 msg="the death push to reach the supervisor")
+        err = group.gang_error
+        assert isinstance(err, GangMemberDiedError)
+        assert err.rank == 1
+        assert GCS_DEATH_CAUSE in str(err), str(err)
+        return time.time() - t_open
+    finally:
+        gate.set()
+        group.shutdown(graceful=False)
+
+
+def death_before_subscription_found_by_the_read(rt, tmp_path):
+    """The group's one read of its ranks' states, by actor id: a rank
+    SIGKILLed before ``_subscribe_deaths`` runs (the group's subscription
+    taken down first, so the GCS's push of the death goes to no one) is
+    found by that read itself, with the supervisor thread held and the
+    pings unable to fail."""
+    from ray_tpu_torch.exceptions import GangMemberDiedError
+    from ray_tpu_torch.train import worker_group as wg
+
+    side = str(tmp_path / "side")
+    os.makedirs(side, exist_ok=True)
+    gate = threading.Event()
+    loop = wg.WorkerGroup._supervise_loop
+
+    def held_loop(self):
+        gate.wait(60)
+        loop(self)
+
+    wg.WorkerGroup._supervise_loop = held_loop
+    try:
+        group = wg.WorkerGroup(2, {"CPU": 1}, backend="store",
+                               group_name="readgang",
+                               experiment_name="read", runtime=rt,
+                               device="cpu")
+    finally:
+        wg.WorkerGroup._supervise_loop = loop
+    group._ping_round = lambda misses: None
+    try:
+        group.start(poll_gang_loop, {"side_dir": side}, None)
+        wait_for(lambda: _read_pid(side, 1) is not None, 30,
+                 "rank 1's pid")
+        # Back to the moment before the subscription.
+        sub, group._sub = group._sub, None
+        sub.unsubscribe()
+        os.kill(_read_pid(side, 1), signal.SIGKILL)
+        wait_for(lambda: _actor_dead(rt, group.workers[1]), 30,
+                 "the GCS to list rank 1 DEAD")
+        assert group.gang_error is None, group.gang_error
+        group._subscribe_deaths()
+        err = group.gang_error
+        assert isinstance(err, GangMemberDiedError), err
+        assert err.rank == 1
+        assert GCS_DEATH_CAUSE in str(err), str(err)
+    finally:
+        gate.set()
+        group.shutdown(graceful=False)
