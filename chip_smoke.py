@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only gaps     # phases 1-5 and 21 only
     python3 chip_smoke.py --only core     # phases 1-5 and 22 only
     python3 chip_smoke.py --only failures # phases 1-5 and 23 only
+    python3 chip_smoke.py --only observability  # phases 1-5 and 24 only
 
 Phases, each printed on its own line, each fatal when it fails:
 
@@ -372,6 +373,35 @@ Phases, each printed on its own line, each fatal when it fails:
    it is killed, runs K1 = the driver's bit for bit. Prints kill -> rejoin
    and kill -> the next step. Each kernel row gets the phase's launches in
    its GPU tasks and actor as ``failures_launches``.
+24. observability: tracing, the profiler, logs, metrics, the flight
+   recorder and runtime envs with a GPU worker, twins of the reference's
+   observability and runtime-env tests. One runtime {CPU 2, GPU 1}, log
+   streaming on, the dashboard on a free port. (a) A driver span wraps a
+   ``num_gpus=1`` task that runs K1 on phase 23's input shape (seed 24),
+   times it with CUDA events and calls a CPU actor's method: one trace id
+   over the three spans, parented driver -> task -> method, the chrome
+   export connects them (two flow pairs), the task's span outlasts its
+   K1, its LSE sum is the driver's K1 bit for bit. (c) The task prints a
+   marker with the card's name, which reaches the driver's stdout with
+   the worker's prefix and ``get_log(follow=True)``; a user ``Counter``
+   it increments shows its sum on ``/metrics``. (b) The same worker builds
+   phase 4's train state and steps on phase 4's batch while a 2 s
+   ``state.profile`` window covers the cluster: every process kind is in
+   it, the GPU worker's stacks hold the flash ``autograd.Function`` and
+   the model's ``_attention``, its first 7 losses are phase 4's (phases
+   16b and 18c's gate); while it holds the GPU the node's hardware sample
+   and ``/metrics`` read ``gpus_total`` 1 and ``gpus_free`` 0, and 1
+   after. Prints the samples and the step ms with the window on and off.
+   (d) The same worker, looping K1, is SIGKILLed: a ``flight-*.json``
+   dump appears in the session's ``flight_recorder`` holding its task
+   events and an ``hw_sample``, and ``gpus_free`` is 1 again (the GPU
+   freed once). Prints kill -> dump. (e) A ``num_gpus=1`` task with a
+   ``working_dir``, a ``py_modules`` module that calls K1, ``env_vars``
+   and ``pip`` with a wheel built here (installed with ``--no-index``):
+   a new process in the env's venv, its cwd, variable, wheel version and
+   module as set, CUDA visible, its LSE sum the driver's K1 bit for bit.
+   Prints its cold start. Two GPU workers in all. Each kernel row gets
+   the phase's launches in its GPU tasks as ``observability_launches``.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 prints them, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -6497,6 +6527,559 @@ def failures_phase(fa, run):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: observability and runtime envs with a GPU worker.
+
+OBS_SEED = 24                  # K1's input seed at phase 23's shape
+OBS_PROFILE_S = 2.0            # 24b's profile window
+OBS_PROFILE_HZ = 250           # its sampling rate (the default is ~67 Hz)
+OBS_STEP_MAX_S = 60.0          # 24b's stepping, until the driver's stop
+OBS_LOOP_MAX_S = 60.0          # 24d's K1 loop, until the SIGKILL
+OBS_WAIT_S = 30.0              # every poll of this phase
+OBS_TIMEOUT_S = 300.0          # every get (a GPU worker's cold start)
+OBS_MARKER = "OBS_GPU_MARKER"
+OBS_COUNTER = "obs_gpu_task_total"
+OBS_WHEEL = ("obswheel", "0.2.4")
+OBS_ENV_VAR = ("OBS_ENV_FLAG", "on")
+OBS_DATA = "phase-24 working dir"
+OBS_MODULE = '''\
+"""Phase 24e's py_module: the port's K1 on given inputs."""
+
+
+def lse_sum(q, k, v, scale):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    _, lse = fa.flash_forward(q, k, v, scale=scale, causal=True)
+    return lse.double().sum().item()
+'''
+
+
+class ObsPing:
+    """24a's CPU actor: the hop after the GPU task."""
+
+    def ping(self, x):
+        return {"pid": os.getpid(), "x": x}
+
+
+def obs_wait(cond, what, timeout=OBS_WAIT_S):
+    end = time.time() + timeout
+    while time.time() < end:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.1)
+    raise AssertionError(f"observability: timed out waiting for {what}")
+
+
+def obs_gpu_hop(seed, actor):
+    """24a/c, in a ``num_gpus=1`` task: K1 on ``seed``'s inputs timed by
+    CUDA events, the f64 sum of its LSE, a call of ``actor``; prints the
+    marker with the card's name and adds 3 to a user counter."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.util import metrics
+
+    before = core_launches(fa)
+    q, k, v, _ = kernel_inputs(B * H, L, L, D, torch.bfloat16, seed)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, lse = fa.flash_forward(q, k, v, scale=D ** -0.5, causal=True)
+    end.record()
+    torch.cuda.synchronize()
+    total = lse.double().sum().item()
+    after = core_launches(fa)
+    pong = rt.get(actor.ping.remote(seed), timeout=60)
+    print(f"{OBS_MARKER} {torch.cuda.get_device_name()}", flush=True)
+    metrics.Counter(OBS_COUNTER, "phase 24's GPU task").inc(3)
+    reported = metrics.report_to_gcs()
+    return {"sum": total, "k1_ms": start.elapsed_time(end),
+            "pid": os.getpid(), "actor_pid": pong["pid"],
+            "reported": reported,
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def obs_train(marker, stop):
+    """24b, in the GPU worker: phase 4's train state and steps on phase
+    4's batch; after the first 7 its pid goes to ``marker``, and it steps
+    on until ``stop`` exists. Returns the first 7 losses, every step's
+    (start, end) and the flash launches."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = tm.GPTConfig.preset("gpt2-125m", max_seq=L, flash_attention=True)
+    state = new_state(tm, cfg)
+    step = tm.make_train_step(cfg)
+    batch = train_batch(cfg.vocab_size)
+    first = WARMUP_STEPS + TIMED_STEPS
+    before = core_launches(fa)
+    losses, steps = [], []
+    end = time.time() + OBS_STEP_MAX_S
+    while True:
+        t0 = time.time()
+        state, out = step(state, batch)
+        loss = out["loss"].item()   # waits for the step
+        steps.append((t0, time.time()))
+        if len(losses) < first:
+            losses.append(loss)
+        if len(steps) == first:
+            with open(marker + ".tmp", "w") as f:
+                f.write(str(os.getpid()))
+            os.replace(marker + ".tmp", marker)
+        if len(steps) >= first and os.path.exists(stop) or \
+                time.time() > end:
+            break
+    after = core_launches(fa)
+    return {"losses": losses, "steps": steps, "pid": os.getpid(),
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def obs_k1_loop(marker, seed):
+    """24d, in the GPU worker: K1 on ``seed``'s inputs in a loop, its pid
+    in ``marker`` after the first; the driver SIGKILLs it."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = kernel_inputs(B * H, L, L, D, torch.bfloat16, seed)
+    end = time.time() + OBS_LOOP_MAX_S
+    n = 0
+    while time.time() < end:
+        fa.flash_forward(q, k, v, scale=D ** -0.5, causal=True)
+        torch.cuda.synchronize()
+        n += 1
+        if n == 1:
+            with open(marker + ".tmp", "w") as f:
+                f.write(str(os.getpid()))
+            os.replace(marker + ".tmp", marker)
+    raise AssertionError(f"observability-d: {n} K1 loops and never killed")
+
+
+def obs_env_task(seed):
+    """24e, in a ``num_gpus=1`` task with a runtime env: what the env set
+    up, and K1's LSE sum through the env's py_module."""
+    import obsk1
+    import obswheel
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    before = core_launches(fa)
+    q, k, v, _ = kernel_inputs(B * H, L, L, D, torch.bfloat16, seed)
+    total = obsk1.lse_sum(q, k, v, D ** -0.5)
+    after = core_launches(fa)
+    with open("obs_data.txt") as f:
+        data = f.read()
+    return {"sum": total, "pid": os.getpid(), "cwd": os.getcwd(),
+            "data": data, "flag": os.environ.get(OBS_ENV_VAR[0]),
+            "wheel": obswheel.__version__, "wheel_file": obswheel.__file__,
+            "module_file": obsk1.__file__,
+            "venv": os.environ.get("VIRTUAL_ENV"),
+            "cuda": torch.cuda.is_available(),
+            "devices": torch.cuda.device_count(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def obs_wheel(where):
+    """A minimal pure-python wheel, installable offline (the reference's
+    ``_make_wheel``)."""
+    import zipfile
+
+    name, version = OBS_WHEEL
+    whl = os.path.join(where, f"{name}-{version}-py3-none-any.whl")
+    dist = f"{name}-{version}.dist-info"
+    with zipfile.ZipFile(whl, "w") as zf:
+        zf.writestr(f"{name}/__init__.py", f"__version__ = {version!r}\n")
+        zf.writestr(f"{dist}/METADATA", f"Metadata-Version: 2.1\nName: "
+                    f"{name}\nVersion: {version}\n")
+        zf.writestr(f"{dist}/WHEEL", "Wheel-Version: 1.0\nGenerator: "
+                    "chip_smoke\nRoot-Is-Purelib: true\nTag: py3-none-any\n")
+        zf.writestr(f"{dist}/RECORD", "")
+    return whl
+
+
+def obs_gpu_metrics(port):
+    """``(gpus_total, gpus_free)`` of the node on ``/metrics``."""
+    text = _http(port, "/metrics", timeout=30)
+    got = {}
+    for name in ("gpus_total", "gpus_free"):
+        m = re.search(rf"^ray_tpu_node_{name}(?:{{[^}}]*}})? (\S+)$", text,
+                      re.M)
+        got[name] = float(m.group(1)) if m else None
+    return got["gpus_total"], got["gpus_free"]
+
+
+def obs_hw(rt):
+    hw = rt.nodes()[0].get("Hardware") or {}
+    return hw.get("gpus_total"), hw.get("gpus_free")
+
+
+class ObsTee:
+    """The driver's stdout, with the lines written to it kept."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def obs_trace(rt, want):
+    """24a, and 24c's marker on the driver's stdout."""
+    from ray_tpu_torch.scripts.cli import build_chrome_trace
+    from ray_tpu_torch.util import tracing
+
+    actor = rt.remote(ObsPing).remote()
+    hop = rt.remote(obs_gpu_hop).options(num_gpus=1)
+    tee = ObsTee(sys.stdout)
+    sys.stdout = tee
+    try:
+        t0 = time.perf_counter()
+        with tracing.span("obs_root", kind="obs") as root_sid:
+            got = rt.get(hop.remote(OBS_SEED, actor), timeout=OBS_TIMEOUT_S)
+        cold_s = time.perf_counter() - t0
+        tracing.flush_spans()
+
+        def spans():
+            evs = rt.timeline()
+            root = [e for e in evs if e.get("span_id") == root_sid]
+            if not root:
+                return None
+            mine = [e for e in evs
+                    if e.get("trace_id") == root[0]["trace_id"]]
+            got = {n: [e for e in mine if e.get("name") == n]
+                   for n in ("obs_root", "obs_gpu_hop", "ping")}
+            if all(got.values()):
+                return {n: (v[0] if len(v) == 1 else None)
+                        for n, v in got.items()}
+            return None
+
+        evs = obs_wait(spans, "the three spans of 24a")
+        line = obs_wait(lambda: next(
+            (ln for ln in "".join(tee.text).splitlines()
+             if OBS_MARKER in ln), None), "the marker on the driver")
+    finally:
+        sys.stdout = tee.stream
+    if None in evs.values():
+        raise AssertionError(f"observability-a: more than one span of a "
+                             f"name in the root's trace: {evs}")
+    root, task, call = evs["obs_root"], evs["obs_gpu_hop"], evs["ping"]
+    chrome = build_chrome_trace([root, task, call])
+    flows = sorted((t["ph"], t["id"]) for t in chrome if t["ph"] in "sf")
+    linked = {task["span_id"], call["span_id"]}
+    span_s = task["end"] - task["start"]
+    name = torch.cuda.get_device_name(0)
+    problems = []
+    if len({root["trace_id"], task["trace_id"], call["trace_id"]}) != 1 or \
+            task["parent_span_id"] != root["span_id"] or \
+            call["parent_span_id"] != task["span_id"] or \
+            root["parent_span_id"] is not None:
+        problems.append(f"trace {[(e['trace_id'], e['span_id'], e['parent_span_id']) for e in (root, task, call)]}")
+    if len(flows) != 4 or {i for _, i in flows} != linked:
+        problems.append(f"chrome flows {flows}")
+    if span_s < got["k1_ms"] / 1e3:
+        problems.append(f"task span {span_s:.6f} s < K1 {got['k1_ms']} ms")
+    if got["sum"] != want[OBS_SEED] or got["actor_pid"] == got["pid"]:
+        problems.append(f"LSE sum {got['sum']} vs {want[OBS_SEED]}")
+    prefix = re.match(r"\((\w+) pid=(\d+) node=\w+\) " + OBS_MARKER, line)
+    if not prefix or int(prefix.group(2)) != got["pid"] or name not in line:
+        problems.append(f"marker line {line!r}")
+    if problems:
+        raise AssertionError("observability-a: " + "; ".join(problems))
+    out = {"gpu_pid": got["pid"], "cold_s": cold_s, "k1_ms": got["k1_ms"],
+           "task_span_s": span_s, "worker_id": prefix.group(1),
+           "launches": got["launches"], "line": line,
+           "reported": got["reported"]}
+    log(f"observability-a ok: one trace over the driver's span, the "
+        f"num_gpus=1 task (pid {got['pid']}) and the CPU actor's method "
+        f"(pid {got['actor_pid']}), parented in that order, 2 chrome flow "
+        f"pairs; the task's span {span_s * 1e3:.2f} ms >= its K1 "
+        f"{got['k1_ms']:.4f} ms by CUDA events; LSE sum = the driver's K1 "
+        f"bit for bit; the first GPU task took {cold_s:.2f} s (cold start)")
+    return out
+
+
+def obs_logs(trace, port):
+    """24c: the marker through ``get_log(follow=True)``, the counter on
+    ``/metrics``."""
+    from ray_tpu_torch.experimental import state
+
+    name, line = torch.cuda.get_device_name(0), trace["line"]
+    gen = state.get_log(ident=trace["worker_id"], stream="stdout",
+                        follow=True, interval_s=0.25)
+    followed = False
+    end = time.time() + OBS_WAIT_S
+    try:
+        for entry in gen:
+            if any(OBS_MARKER in ln and name in ln
+                   for ln in entry.get("lines") or []):
+                followed = True
+            if followed or time.time() > end:
+                break
+    finally:
+        gen.close()
+    counted = f"{OBS_COUNTER} 3.0" in _http(port, "/metrics", timeout=30)
+    if not followed or not trace["reported"] or not counted:
+        raise AssertionError(f"observability-c: followed {followed}, "
+                             f"counter reported {trace['reported']}, 3.0 on "
+                             f"/metrics {counted}")
+    log(f"observability-c logs ok: {line.strip()!r} on the driver's stdout "
+        f"and in get_log(follow=True); {OBS_COUNTER} 3.0 on /metrics")
+
+
+def obs_profile(rt, run, spread, port, gpu_pid, tmp, ref, trace):
+    """24b, with 24c's GPU gauges while the step holds the GPU: ``ref`` is
+    ``obs_train``'s task, stepping in ``tmp``; 24c's logs are read while
+    it builds its state."""
+    from ray_tpu_torch.experimental import state
+
+    tol = max(GANG_LOSS_ATOL, spread)
+    marker, stop = os.path.join(tmp, "stepping"), os.path.join(tmp, "stop")
+    obs_logs(trace, port)
+    obs_wait(lambda: os.path.exists(marker), "24b's first 7 steps",
+             OBS_TIMEOUT_S)
+    t_on = time.time()
+    processes = state.profile(duration_s=OBS_PROFILE_S, hz=OBS_PROFILE_HZ)
+    t_off = time.time()
+    held_hw = obs_wait(lambda: obs_hw(rt) == (1, 0) and obs_hw(rt),
+                       "gpus_free 0 in the hardware sample")
+    held_metrics = obs_wait(
+        lambda: obs_gpu_metrics(port) == (1.0, 0.0) and
+        obs_gpu_metrics(port), "gpus_free 0 on /metrics")
+    with open(stop, "w"):
+        pass
+    got = rt.get(ref, timeout=OBS_TIMEOUT_S)
+    freed_hw = obs_wait(lambda: obs_hw(rt) == (1, 1) and obs_hw(rt),
+                        "gpus_free 1 in the hardware sample")
+    freed_metrics = obs_wait(
+        lambda: obs_gpu_metrics(port) == (1.0, 1.0) and
+        obs_gpu_metrics(port), "gpus_free 1 on /metrics")
+    kinds = {p.get("kind") for p in processes if not p.get("error")}
+    mine = [p for p in processes if p.get("pid") == got["pid"]
+            and not p.get("error")]
+    stacks = [s for p in mine for s in p.get("stacks") or {}]
+    flash = [s for s in stacks if "ops/flash_attention.py" in s]
+    attention = [s for s in stacks if "_attention (models/transformer.py"
+                 in s]
+    samples = sum(p.get("samples", 0) for p in mine)
+    err = max(abs(a - b) for a, b in zip(got["losses"], run.losses))
+    steps = got["steps"]
+    on = [b - a for a, b in steps[WARMUP_STEPS:] if a >= t_on and b <= t_off]
+    off = [b - a for a, b in steps[WARMUP_STEPS:] if b <= t_on or a >= t_off]
+    problems = []
+    if not {"gcs", "node_manager", "driver", "worker"} <= kinds:
+        problems.append(f"process kinds {kinds}")
+    if got["pid"] != gpu_pid or not flash or not attention:
+        problems.append(f"GPU worker pid {got['pid']} (24a's {gpu_pid}), "
+                        f"{len(stacks)} stacks, {len(flash)} with the "
+                        f"flash Function, {len(attention)} with _attention")
+    if len(got["losses"]) != len(run.losses) or err > tol:
+        problems.append(f"losses {got['losses']} vs phase 4's "
+                        f"{run.losses} (tol {tol})")
+    if not on or not off:
+        problems.append(f"{len(on)} steps in the window, {len(off)} out")
+    if problems:
+        raise AssertionError("observability-b: " + "; ".join(problems))
+    out = {"samples": samples, "stacks": len(stacks),
+           "flash_stacks": len(flash), "attention_stacks": len(attention),
+           "kinds": sorted(kinds), "processes": len(processes),
+           "loss_err": err, "tol": tol, "steps": len(steps),
+           "step_ms_on": statistics.median(on) * 1e3,
+           "step_ms_off": statistics.median(off) * 1e3,
+           "steps_on": len(on), "steps_off": len(off),
+           "gpus_held": [held_hw, held_metrics],
+           "gpus_after": [freed_hw, freed_metrics],
+           "launches": got["launches"]}
+    log(f"observability-b ok: a {OBS_PROFILE_S} s profile at "
+        f"{OBS_PROFILE_HZ} Hz over {len(processes)} processes ({sorted(kinds)}"
+        f"); the GPU worker (pid {got['pid']}, 24a's) gave {samples} "
+        f"samples, {len(flash)} of its {len(stacks)} stacks through the "
+        f"flash autograd.Function, {len(attention)} through _attention; "
+        f"gpt2-125m losses = phase 4's within {err:.3e} (tol {tol:.1e}); "
+        f"step {out['step_ms_on']:.2f} ms with the window on ({len(on)} "
+        f"steps), {out['step_ms_off']:.2f} ms off ({len(off)}); launches "
+        f"{got['launches']} in {len(steps)} steps")
+    log(f"observability-c gauges ok: gpus (total, free) {held_hw} in the "
+        f"hardware sample and {held_metrics} on /metrics while the step "
+        f"held the GPU, {freed_hw} and {freed_metrics} after")
+    return out
+
+
+def obs_flight(rt, port, gpu_pid):
+    """24d."""
+    import glob
+    import signal
+
+    from ray_tpu_torch._private import worker as tworker
+
+    flight = os.path.join(tworker._global_cluster.session_dir,
+                          "flight_recorder")
+    before = set(glob.glob(os.path.join(flight, "flight-*.json")))
+    with tempfile.TemporaryDirectory() as tmp:
+        marker = os.path.join(tmp, "looping")
+        ref = rt.remote(obs_k1_loop).options(
+            num_gpus=1, max_retries=0).remote(marker, OBS_SEED)
+        obs_wait(lambda: os.path.exists(marker), "24d's K1 loop",
+                 OBS_TIMEOUT_S)
+        with open(marker) as f:
+            pid = int(f.read())
+        t_kill = time.time()
+        os.kill(pid, signal.SIGKILL)
+        dumps = obs_wait(lambda: sorted(set(glob.glob(os.path.join(
+            flight, "flight-*.json"))) - before), "a flight dump")
+        dump_s = time.time() - t_kill
+    err = None
+    try:
+        rt.get(ref, timeout=OBS_TIMEOUT_S)
+    except Exception as e:
+        err = type(e).__name__
+    events = []
+    for path in dumps:
+        with open(path) as f:
+            events += json.load(f)["events"]
+    mine = [e for e in events if e.get("pid") == pid
+            and e.get("kind") in ("task", "actor_task")]
+    hw = [e for e in events if e.get("kind") == "hw_sample"]
+    freed = obs_wait(lambda: obs_hw(rt) == (1, 1) and obs_hw(rt),
+                     "gpus_free 1 after the kill")
+    freed_metrics = obs_wait(
+        lambda: obs_gpu_metrics(port) == (1.0, 1.0) and
+        obs_gpu_metrics(port), "gpus_free 1 on /metrics after the kill")
+    if pid != gpu_pid or err is None or not mine or not hw:
+        raise AssertionError(f"observability-d: killed pid {pid} (24a's "
+                             f"{gpu_pid}), get raised {err}, {len(mine)} of "
+                             f"its task events and {len(hw)} hw samples in "
+                             f"{len(dumps)} dumps")
+    out = {"dump_s": dump_s, "dumps": len(dumps), "task_events": len(mine),
+           "hw_samples": len(hw), "error": err, "gpus": [freed,
+                                                        freed_metrics]}
+    log(f"observability-d ok: the GPU worker (pid {pid}) SIGKILLed in its "
+        f"K1 loop; {len(dumps)} flight dump(s) {dump_s:.3f} s after the "
+        f"kill, holding {len(mine)} of its task events and {len(hw)} "
+        f"hw_sample events; its get raised {err}; gpus (total, free) "
+        f"{freed} after: the GPU freed once")
+    return out
+
+
+def obs_pip_env(tmp):
+    """24e's ``pip`` entry: the wheel built in ``tmp``, installed with no
+    index and no version check (nothing is fetched)."""
+    return {"packages": [obs_wheel(tmp)],
+            "pip_install_options": ["--no-index",
+                                    "--disable-pip-version-check"]}
+
+
+def obs_venv():
+    """A CPU task in 24e's pip env: its venv, built while 24a-d run."""
+    return os.environ.get("VIRTUAL_ENV")
+
+
+def obs_runtime_env(rt, want, gpu_pid, tmp, pip):
+    """24e: its env is ``tmp``'s working dir and module and ``pip``."""
+    wd = os.path.join(tmp, "workdir")
+    mod = os.path.join(tmp, "obsk1")
+    os.makedirs(wd)
+    os.makedirs(mod)
+    with open(os.path.join(wd, "obs_data.txt"), "w") as f:
+        f.write(OBS_DATA)
+    with open(os.path.join(mod, "__init__.py"), "w") as f:
+        f.write(OBS_MODULE)
+    env = {"working_dir": wd, "py_modules": [mod],
+           "env_vars": dict([OBS_ENV_VAR]), "pip": pip}
+    t0 = time.perf_counter()
+    got = rt.get(rt.remote(obs_env_task).options(
+        num_gpus=1, runtime_env=env).remote(OBS_SEED),
+        timeout=OBS_TIMEOUT_S)
+    cold_s = time.perf_counter() - t0
+    venv = got["venv"] or ""
+    problems = []
+    if got["data"] != OBS_DATA or os.path.realpath(got["cwd"]) == \
+            os.path.realpath(os.getcwd()):
+        problems.append(f"cwd {got['cwd']}, data {got['data']!r}")
+    if got["flag"] != OBS_ENV_VAR[1] or got["wheel"] != OBS_WHEEL[1]:
+        problems.append(f"env var {got['flag']}, wheel {got['wheel']}")
+    if not venv or not got["wheel_file"].startswith(venv) or \
+            got["pid"] == gpu_pid:
+        problems.append(f"venv {venv}, wheel at {got['wheel_file']}, pid "
+                        f"{got['pid']} (24a-d's {gpu_pid})")
+    if not got["cuda"] or got["devices"] != 1 or \
+            not got["cuda_visible_devices"]:
+        problems.append(f"CUDA {got['cuda']}, {got['devices']} devices, "
+                        f"CUDA_VISIBLE_DEVICES {got['cuda_visible_devices']}")
+    if got["sum"] != want[OBS_SEED]:
+        problems.append(f"LSE sum {got['sum']} vs {want[OBS_SEED]}")
+    if problems:
+        raise AssertionError("observability-e: " + "; ".join(problems))
+    out = {"cold_s": cold_s, "pid": got["pid"], "venv": venv,
+           "launches": got["launches"]}
+    log(f"observability-e ok: a num_gpus=1 task with working_dir, "
+        f"py_modules (obsk1 -> K1), env_vars and pip ({OBS_WHEEL[0]} "
+        f"{OBS_WHEEL[1]} from a local wheel) ran in a new process (pid "
+        f"{got['pid']}) in the env's venv, CUDA_VISIBLE_DEVICES="
+        f"{got['cuda_visible_devices']}; LSE sum = the driver's K1 bit for "
+        f"bit; {cold_s:.2f} s from submit to result (a cold start; the "
+        f"venv was built beside 24a-d)")
+    return out
+
+
+def observability_phase(fa, run, spread):
+    """Phase 24: tracing, the profiler, logs, metrics, the flight recorder
+    and runtime envs with a GPU worker, on one runtime {CPU 2, GPU 1}."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard
+
+    import threading
+
+    t0 = time.perf_counter()
+    want = failures_want([OBS_SEED])
+    out = {}
+    rt.init(num_cpus=2, num_gpus=1, log_to_driver=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # Beside 24a's cold start: the dashboard, and 24e's venv,
+            # built by a CPU task in its pip env.
+            dash = {}
+            started = threading.Thread(target=lambda: dash.update(
+                port=start_dashboard(port=free_port())[1]))
+            started.start()
+            pip = obs_pip_env(tmp)
+            venv_ref = rt.remote(obs_venv).options(
+                runtime_env={"pip": pip}).remote()
+            out["trace"] = obs_trace(rt, want)
+            gpu_pid = out["trace"]["gpu_pid"]
+            stepping = os.path.join(tmp, "steps")
+            os.makedirs(stepping)
+            ref = rt.remote(obs_train).options(num_gpus=1).remote(
+                os.path.join(stepping, "stepping"),
+                os.path.join(stepping, "stop"))
+            started.join(timeout=OBS_TIMEOUT_S)
+            port = dash["port"]
+            out["profile"] = obs_profile(rt, run, spread, port, gpu_pid,
+                                         stepping, ref, out["trace"])
+            out["flight"] = obs_flight(rt, port, gpu_pid)
+            venv = rt.get(venv_ref, timeout=OBS_TIMEOUT_S)
+            out["env"] = obs_runtime_env(rt, want, gpu_pid, tmp, pip)
+            if out["env"]["venv"] != venv:
+                raise AssertionError(f"observability-e: venv "
+                                     f"{out['env']['venv']}, the CPU task's "
+                                     f"{venv}")
+    finally:
+        rt.shutdown()
+    gc_collect()
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("trace", "profile", "env"))
+                       for k in CORE_KERNELS}
+    if not all(out["launches"].values()):
+        raise AssertionError(f"observability: launches {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"observability phase ok in {out['phase_s']:.1f} s; K1-K3 launches "
+        f"in its GPU tasks {out['launches']}; card: {gpu_line()}")
+    log("observability metrics: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -6508,7 +7091,7 @@ def main() -> int:
                     help="seed of the serve run's prompts and weights")
     ap.add_argument("--only", choices=["sharded", "runtime", "serve", "tune",
                                        "jobs", "correctness", "gaps", "core",
-                                       "failures"],
+                                       "failures", "observability"],
                     help="run the build, the kernel checks, the main path "
                          "and this phase only")
     args = ap.parse_args()
@@ -6697,6 +7280,17 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "observability":
+        observed = observability_phase(fa, run, spread)
+        for row in rows:
+            row["observability_launches"] = observed["launches"][row["name"]]
+        log(json.dumps({"kernels": rows}))
+        log(gpu_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from ray_tpu_torch.models import generate as gen
     from ray_tpu_torch.serve.llm import engine as se
 
@@ -6748,9 +7342,12 @@ def main() -> int:
                  frame16=runtime["frame"])
     core = timed("22 core", core_phase, fa, bf16, errors)
     failures = timed("23 failures", failures_phase, fa, run)
+    observed = timed("24 observability", observability_phase, fa, run,
+                     spread)
     log(f"phase seconds: {json.dumps(phase_s)}; all "
         f"{time.perf_counter() - t_main:.1f} s")
     for row in rows:
+        row["observability_launches"] = observed["launches"][row["name"]]
         row["failures_launches"] = failures["launches"][row["name"]]
         row["core_launches"] = core["launches"][row["name"]]
         row["gaps_launches"] = gaps["death_push"]["launches_per_step"][

@@ -75,6 +75,7 @@ import json
 import pickle
 import sys
 import threading
+import time
 import warnings
 import weakref
 from typing import TYPE_CHECKING, Any, Callable, Optional
@@ -121,6 +122,21 @@ def take_pending_stage_bytes() -> int:
     n = _tls.pending_stage_bytes
     _tls.pending_stage_bytes = 0
     return n
+
+
+def _trace(kind: str, start: float, end: Optional[float] = None,
+           **attrs: Any) -> None:
+    """A device-object hop as a span of the running trace (the KV
+    hand-off's publish is a ``device_put``, its adopt a ``device_get``),
+    under whatever task or span stages it; nothing outside a trace, where
+    the span would link to nothing."""
+    from ray_tpu_torch.util import tracing
+
+    if tracing.current() is not None:
+        name = "device_object.put" if kind == "device_put" \
+            else "device_object.get"
+        tracing.emit_span(name, kind=kind, start=start, end=end,
+                          attrs=attrs)
 
 
 def _bump(key: str, n: int = 1) -> None:
@@ -187,11 +203,13 @@ def reduce_tensor(obj: Any) -> Optional[tuple]:
     """The reducer: a reduce tuple for a tensor it takes, else None."""
     if not takes(obj) or not enabled():
         return None
+    t0 = time.time()
     header, raw, copies = frame(obj.detach())
     _bump("host_materializations", copies)
     _bump("puts")
     _bump("staged_bytes", raw.nbytes)
     _tls.pending_stage_bytes += raw.nbytes
+    _trace("device_put", t0, bytes=int(raw.nbytes), shape=list(obj.shape))
     return (rebuild_tensor, (header, pickle.PickleBuffer(raw)))
 
 
@@ -213,8 +231,11 @@ def _pick_device(meta: dict) -> torch.device:
 def rebuild_tensor(header: bytes, buf) -> torch.Tensor:
     """Unpickle target of a staged tensor: ``load_tensor``, counted as one
     of the store's rebuilds."""
+    t0 = time.time()
     out = load_tensor(header, buf)
     _bump("rebuilds")
+    _trace("device_get", t0, bytes=int(out.nbytes), shape=list(out.shape),
+           local_hit=False)
     return out
 
 
@@ -271,7 +292,7 @@ def lookup_local(ref: Any) -> Optional[torch.Tensor]:
     except TypeError:
         return None
     if t is not None:
-        _bump("local_hits")
+        _local_hit(t)
     return t
 
 
@@ -290,8 +311,16 @@ def core_lookup_local(core, oid_bytes: bytes) -> Optional[torch.Tensor]:
         return None
     t = core._device_local.get(oid_bytes)
     if t is not None:
-        _bump("local_hits")
+        _local_hit(t)
     return t
+
+
+def _local_hit(t: torch.Tensor) -> None:
+    """A by-reference get: counted, and a zero-length ``device_get`` span
+    of the running trace (the same-process leg of a KV hand-off)."""
+    _bump("local_hits")
+    now = time.time()
+    _trace("device_get", now, now, bytes=int(t.nbytes), local_hit=True)
 
 
 def donatable(value: Any) -> bool:

@@ -76,6 +76,7 @@ from ray_tpu_torch._private.task_spec import (
     ResourceSet,
     TaskSpec,
     demand_overlaps,
+    pinned_deps,
 )
 
 logger = logging.getLogger("ray_tpu_torch.gcs")
@@ -2104,7 +2105,7 @@ class GcsServer:
         if tid in self._pinned_tasks:
             return
         self._pinned_tasks.add(tid)
-        for d in spec.arg_deps:
+        for d in pinned_deps(spec):
             self._task_arg_pins[d.binary()] += 1
             self._pending_free.pop(d.binary(), None)
 
@@ -2113,7 +2114,7 @@ class GcsServer:
         if tid not in self._pinned_tasks:
             return
         self._pinned_tasks.discard(tid)
-        for d in spec.arg_deps:
+        for d in pinned_deps(spec):
             oid = d.binary()
             n = self._task_arg_pins.get(oid, 0) - 1
             if n <= 0:

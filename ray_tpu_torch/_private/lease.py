@@ -39,6 +39,7 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import protocol
 from ray_tpu_torch._private.spec_template import invalidate_wire, spec_wire
+from ray_tpu_torch._private.task_spec import pinned_deps
 
 if TYPE_CHECKING:
     from ray_tpu_torch._private.worker import CoreWorker
@@ -414,7 +415,8 @@ class LeaseManager:
         frame on its own conn) for dep-carrying specs — their pin-
         before-decref ordering relies on same-conn FIFO with the
         refcount flush — and when batch framing is off."""
-        if not self._batch_frames or self._closed or spec.arg_deps:
+        if not self._batch_frames or self._closed or spec.arg_deps \
+                or spec.nested_deps:
             return False
         return self.submit_classic_blob(spec_wire(spec))
 
@@ -598,10 +600,10 @@ class LeaseManager:
 
     def _incref_deps(self, spec):
         refs = self._w._refs
-        if refs is not None and spec.arg_deps:
+        if refs is not None and (spec.arg_deps or spec.nested_deps):
             # One refcount-lock acquisition per submission, not one per
             # dep (the r08 profile's incref tower).
-            refs.incref_many([d.binary() for d in spec.arg_deps])
+            refs.incref_many([d.binary() for d in pinned_deps(spec)])
 
     def _pick_lease_locked(self, st: _ShapeState) -> Optional[_Lease]:
         best = None
@@ -1178,7 +1180,7 @@ class LeaseManager:
         refs = self._w._refs
         if refs is not None:
             deps = [d.binary() for spec in done_specs
-                    for d in spec.arg_deps]
+                    for d in pinned_deps(spec)]
             if deps:
                 refs.decref_many(deps)
         if drained:
@@ -1287,8 +1289,8 @@ class LeaseManager:
 
     def _decref_deps(self, spec):
         refs = self._w._refs
-        if refs is not None and spec.arg_deps:
-            refs.decref_many([d.binary() for d in spec.arg_deps])
+        if refs is not None and (spec.arg_deps or spec.nested_deps):
+            refs.decref_many([d.binary() for d in pinned_deps(spec)])
 
     # -------------------------------------------------------- lease drop
 

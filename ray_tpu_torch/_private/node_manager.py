@@ -43,6 +43,7 @@ from ray_tpu_torch._private.task_spec import (
     ResourceSet,
     TaskSpec,
     demand_overlaps,
+    pinned_deps,
 )
 from ray_tpu_torch.object_store import plasma
 
@@ -1288,7 +1289,7 @@ class NodeManager:
         for spec in parked_actor_specs:
             # Never delivered; the reroute path (below, via current_tasks)
             # or failure materialization takes custody of the args.
-            self._refcount_delta(spec.arg_deps, -1)
+            self._refcount_delta(pinned_deps(spec), -1)
         # Fail in-flight tasks. Plain tasks: report crashed WITHOUT
         # materializing error objects — the GCS owns the retry budget, and
         # an early error object would fulfill the caller's get() with the
@@ -2116,7 +2117,7 @@ class NodeManager:
                     # args under the NODE identity for the parked window
                     # (the worker pins on receive; the caller's pin was
                     # released at ack).
-                    self._refcount_delta(spec.arg_deps, +1)
+                    self._refcount_delta(pinned_deps(spec), +1)
                     w.pending_pushes.append(("run_actor_task", spec))
                     return
                 conn = w.conn
@@ -2349,7 +2350,7 @@ class NodeManager:
                         # Delivered: the worker's receive-time pin owns
                         # the args now; release the parked-window node
                         # pin.
-                        self._refcount_delta(payload.arg_deps, -1)
+                        self._refcount_delta(pinned_deps(payload), -1)
         if reject:
             try:
                 conn.reply_error(msg_id, "worker was reaped at startup")
@@ -2363,7 +2364,7 @@ class NodeManager:
             # they leak until node death.
             for fm, fp in pushes[push_fail:]:
                 if fm == "run_actor_task":
-                    self._refcount_delta(fp.arg_deps, -1)
+                    self._refcount_delta(pinned_deps(fp), -1)
             self._on_worker_death(w)
             return
         conn.reply(msg_id, {"node_id": self.node_id})

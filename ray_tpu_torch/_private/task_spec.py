@@ -164,6 +164,10 @@ class TaskSpec:
     # {trace_id, parent_span_id}: carried across hops so task events form
     # a distributed trace (reference: tracing_helper.py:284 _ray_trace_ctx).
     trace_ctx: Optional[Dict[str, Any]] = None
+    # ObjectRefs nested inside the args (a list of refs, say): never
+    # waited for, but pinned with arg_deps while the task is in flight,
+    # so a task that waits in a queue still finds them (pinned_deps).
+    nested_deps: Tuple[ObjectID, ...] = ()
 
     def return_ids(self) -> List[ObjectID]:
         # Memoized: the submit hot path derives these at least twice
@@ -193,7 +197,8 @@ class TaskSpec:
         "num_returns", "resources", "name", "max_retries", "retries_left",
         "caller_id", "owner_node", "scheduling_strategy",
         "placement_group_id", "placement_group_bundle_index",
-        "runtime_env", "donate_result", "submitted_at", "trace_ctx")
+        "runtime_env", "donate_result", "submitted_at", "trace_ctx",
+        "nested_deps")
 
     def __getstate__(self):
         return tuple(getattr(self, f) for f in self._STATE_FIELDS)
@@ -255,10 +260,18 @@ class ActorTaskSpec:
     concurrency_group: str = ""
     retries_left: int = 0
     trace_ctx: Optional[Dict[str, Any]] = None   # see TaskSpec.trace_ctx
+    nested_deps: Tuple[ObjectID, ...] = ()       # see TaskSpec.nested_deps
 
     def return_ids(self) -> List[ObjectID]:
         return [ObjectID.for_return(self.task_id, i)
                 for i in range(self.num_returns)]
+
+
+def pinned_deps(spec) -> List[ObjectID]:
+    """The objects a spec in flight keeps alive: its arguments and the
+    refs nested inside them."""
+    nested = getattr(spec, "nested_deps", ())
+    return spec.arg_deps + list(nested) if nested else spec.arg_deps
 
 
 @dataclass

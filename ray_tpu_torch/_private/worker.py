@@ -47,6 +47,7 @@ from ray_tpu_torch._private.task_spec import (
     ActorTaskSpec,
     TaskSpec,
     normalize_resources,
+    pinned_deps,
 )
 from ray_tpu_torch.object_store import plasma
 from ray_tpu_torch.util import metrics as metrics_util
@@ -120,6 +121,9 @@ class ObjectRef:
         return self._id.job_id()
 
     def __reduce__(self):
+        nested = getattr(_nested_refs, "ids", None)
+        if nested is not None:
+            nested.append(self._id)
         return (_restore_ref, (self._id.binary(), self._owner_hint))
 
     def __hash__(self):
@@ -231,6 +235,11 @@ def _future_executor() -> _DaemonPool:
 # How long a pull retries a refused connection to the node the object
 # directory lists (``_fetch_from``).
 _FETCH_CONNECT_S = 1.0
+
+
+# Set by _serialize_task_args while it pickles a task's args: the
+# ObjectRefs nested in them note their ids here (TaskSpec.nested_deps).
+_nested_refs = threading.local()
 
 
 def _restore_ref(id_bytes: bytes, owner_hint: str) -> ObjectRef:
@@ -494,6 +503,8 @@ class _GcsChannel:
         gets its reply (the next call redials a connection the GCS's
         restart closed). A listener on the address that does not answer
         is not the GCS."""
+        if self._closed:
+            return False
         if not self._conn.closed:
             return True
         try:
@@ -512,6 +523,16 @@ class _GcsChannel:
     def close(self):
         self._closed = True
         self._conn.close()
+
+    def close_if_unreachable(self) -> None:
+        """Close the channel when its connection is down and the GCS
+        does not answer ``reachable``: every later call then fails at
+        once instead of redialing for ``gcs_rpc_timeout_s`` (60 s, each
+        dial up to 30 s). The driver's shutdown calls it before its last
+        flushes: the ref tracker's final delta alone waited 90 s on a
+        dead GCS."""
+        if self._conn.closed and not self.reachable():
+            self.close()
 
 
 class SubmitTemplate:
@@ -1517,13 +1538,25 @@ class CoreWorker:
     _EMPTY_ARGS_BLOB: Optional[bytes] = None
 
     def _serialize_args(self, args, kwargs) -> Tuple[Any, List[ObjectID]]:
+        """``(blob, deps)``, the reference's interface (an actor's
+        constructor args, and the mirrored tests, read it)."""
+        blob, deps, _ = self._serialize_task_args(args, kwargs)
+        return blob, deps
+
+    def _serialize_task_args(self, args, kwargs
+                             ) -> Tuple[Any, List[ObjectID],
+                                        Tuple[ObjectID, ...]]:
+        """``(blob, deps, nested)``: the framed args, the top-level refs
+        the task waits for, and the refs nested inside the args, which
+        it does not wait for but keeps pinned while it is in flight
+        (``TaskSpec.nested_deps``)."""
         if not args and not kwargs:
             # Zero-arg calls are common on the hot path; reuse one blob.
             blob = CoreWorker._EMPTY_ARGS_BLOB
             if blob is None:
                 blob = serialization.serialize(((), {})).to_bytes()
                 CoreWorker._EMPTY_ARGS_BLOB = blob
-            return blob, []
+            return blob, [], ()
         deps: List[ObjectID] = []
         proc_args = []
         for a in args:
@@ -1539,12 +1572,17 @@ class CoreWorker:
                 proc_kwargs[k] = _ObjArg(v.binary())
             else:
                 proc_kwargs[k] = v
-        sobj = serialization.serialize((proc_args, proc_kwargs))
+        _nested_refs.ids = nested = []
+        try:
+            sobj = serialization.serialize((proc_args, proc_kwargs))
+        finally:
+            _nested_refs.ids = None
+        nested = tuple(nested)
         if sobj.total_size() > _INLINE_ARG_LIMIT:
             ref = self.put_serialized(sobj)
             deps.append(ref.id)
-            return ("ref", ref.binary()), deps
-        return sobj.to_bytes(), deps
+            return ("ref", ref.binary()), deps, nested
+        return sobj.to_bytes(), deps, nested
 
     def deserialize_args(self, args_blob) -> Tuple[tuple, dict]:
         # Zero-arg calls ship one well-known shared blob (_serialize_args
@@ -1627,14 +1665,15 @@ class CoreWorker:
 
             runtime_env = renv_mod.package_runtime_env(self.kv(), runtime_env)
         if args or kwargs:
-            args_blob, deps = self._serialize_args(args, kwargs)
+            args_blob, deps, nested = self._serialize_task_args(args, kwargs)
         else:
             # Zero-arg fast path, inlined from _serialize_args.
             args_blob = CoreWorker._EMPTY_ARGS_BLOB
             if args_blob is None:
-                args_blob, deps = self._serialize_args(args, kwargs)
+                args_blob, deps, nested = self._serialize_task_args(
+                    args, kwargs)
             else:
-                deps = []
+                deps, nested = [], ()
         task_id = TaskID.for_task(self.job_id)
         trace_ctx = _tracing().for_submit()
         pg_id = placement_group.id if placement_group is not None else None
@@ -1658,7 +1697,7 @@ class CoreWorker:
                         donate_result)
             # accepts() inlined: this runs once per submission.
             if tpl is not None and trace_ctx is None and not deps \
-                    and type(args_blob) is bytes \
+                    and not nested and type(args_blob) is bytes \
                     and len(args_blob) < tpl.max_args:
                 # Blob-only classic route: when the lease path is known
                 # to decline this shape right now (denial window) — or
@@ -1700,6 +1739,7 @@ class CoreWorker:
                 runtime_env=runtime_env,
                 donate_result=donate_result,
                 trace_ctx=trace_ctx,
+                nested_deps=nested,
             )
         # Direct transport first: plain tasks stream to a leased worker
         # (submit() declines when closed/over capacity -> scheduled path).
@@ -2187,14 +2227,14 @@ class CoreWorker:
     def submit_actor_task(self, actor_id: ActorID, method_name: str,
                           args, kwargs, *, num_returns: int = 1,
                           concurrency_group: str = "") -> List[ObjectRef]:
-        args_blob, deps = self._serialize_args(args, kwargs)
+        args_blob, deps, nested = self._serialize_task_args(args, kwargs)
         # Pin arg deps while the spec is in OUR hands (parked on a route,
         # in flight to the NM): the ack hand-off transfers custody to the
         # receiving side's pins (worker on receive; NM while parked; GCS
         # for reroutes), so a caller that drops its ObjectRefs right after
         # .remote() can never get its args freed mid-flight.
         if self._refs is not None:
-            for d in deps:
+            for d in deps + list(nested):
                 self._refs.incref(d.binary())
         aid = actor_id.binary()
         task_id = TaskID.for_actor_task(actor_id)
@@ -2213,6 +2253,7 @@ class CoreWorker:
             seqno=seq,
             concurrency_group=concurrency_group,
             trace_ctx=_tracing().for_submit(),
+            nested_deps=nested,
         )
         self._dispatch_actor_task(spec)
         rids = spec.return_ids()
@@ -2281,7 +2322,7 @@ class CoreWorker:
 
     def _decref_actor_task_deps(self, spec):
         if self._refs is not None:
-            for d in spec.arg_deps:
+            for d in pinned_deps(spec):
                 self._refs.decref(d.binary())
 
     def _repark_actor_task(self, spec):
@@ -2657,7 +2698,11 @@ def shutdown():
         if _global_worker is not None:
             from ray_tpu_torch._private import usage
             # raylint: disable-next=blocking-under-lock (the lifecycle
-            # guard below; the report's dial of the GCS is bounded by 1 s)
+            # guard below; the probe's dial and read are bounded by 1 s)
+            _global_worker.gcs.close_if_unreachable()
+            # raylint: disable-next=blocking-under-lock (the same guard;
+            # the report's probe is bounded by 1 s, and a closed channel
+            # skips it at once)
             usage.on_driver_disconnect()
             # raylint: disable-next=blocking-under-lock (_init_lock is
             # the init/shutdown lifecycle guard: a concurrent init()

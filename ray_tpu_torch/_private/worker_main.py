@@ -34,7 +34,8 @@ from ray_tpu_torch._private import (
 )
 from ray_tpu_torch._private.config import config
 from ray_tpu_torch._private.ids import ActorID, JobID, TaskID
-from ray_tpu_torch._private.task_spec import ActorCreationSpec, ActorTaskSpec, TaskSpec
+from ray_tpu_torch._private.task_spec import (ActorCreationSpec, ActorTaskSpec,
+                                              TaskSpec, pinned_deps)
 from ray_tpu_torch._private.worker import CoreWorker, set_global_worker
 from ray_tpu_torch.object_store import plasma
 from ray_tpu_torch.util import metrics as metrics_util
@@ -207,13 +208,13 @@ class WorkerExecutor:
     def _pin_actor_task_args(self, spec):
         refs = self.core._refs
         if refs is not None:
-            for d in spec.arg_deps:
+            for d in pinned_deps(spec):
                 refs.incref(d.binary())
 
     def _unpin_actor_task_args(self, spec):
         refs = self.core._refs
         if refs is not None:
-            for d in spec.arg_deps:
+            for d in pinned_deps(spec):
                 refs.decref(d.binary())
 
     def _on_msg(self, conn, mtype, payload, msg_id):

@@ -50,6 +50,7 @@ from ray_tpu_torch._private.config import config
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.exceptions import GangMemberDiedError
 from ray_tpu_torch.runtime import ActorDiedError, LocalRuntime
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger("ray_tpu_torch.collective")
 
@@ -509,18 +510,25 @@ class StoreGroup(BaseGroup):
         self._seq += 1
         key = f"{tag}:{self._seq}"
         deadline = time.time() + self._op_timeout_s
-        self._coord_call(
-            lambda: self._coord.contribute.remote(key, self.rank, value),
-            deadline, tag)
-        while True:
-            vals = self._coord_call(
-                lambda: self._coord.collect.remote(key, self.rank),
+        # One span per op, parented under the rank's running task: a
+        # wedged op shows on the timeline as one long collective slice.
+        with tracing.span(f"collective.{key}", kind="collective",
+                          attrs={"group": self.group_name,
+                                 "rank": self.rank,
+                                 "world_size": self.world_size}):
+            self._coord_call(
+                lambda: self._coord.contribute.remote(key, self.rank,
+                                                      value),
                 deadline, tag)
-            if vals is not None:
-                return vals
-            if time.time() > deadline:
-                raise TimeoutError(f"collective op {tag} timed out")
-            time.sleep(0.002)
+            while True:
+                vals = self._coord_call(
+                    lambda: self._coord.collect.remote(key, self.rank),
+                    deadline, tag)
+                if vals is not None:
+                    return vals
+                if time.time() > deadline:
+                    raise TimeoutError(f"collective op {tag} timed out")
+                time.sleep(0.002)
 
     @staticmethod
     def _reduce(arrs: List[np.ndarray], op: ReduceOp) -> np.ndarray:
@@ -575,8 +583,11 @@ class StoreGroup(BaseGroup):
         self._p2p_seq[chan] = seq
         key = f"p2p:{self.rank}->{dst_rank}:{seq}"
         payload = np.asarray(tensor)
-        self._coord_call(lambda: self._coord.post.remote(key, payload),
-                         time.time() + self._op_timeout_s, "send")
+        with tracing.span(f"collective.{key}", kind="collective",
+                          attrs={"group": self.group_name,
+                                 "rank": self.rank}):
+            self._coord_call(lambda: self._coord.post.remote(key, payload),
+                             time.time() + self._op_timeout_s, "send")
 
     def recv(self, shape, dtype, src_rank: int):
         self._need_coordinator()
@@ -585,14 +596,17 @@ class StoreGroup(BaseGroup):
         self._p2p_seq[chan] = seq
         key = f"p2p:{src_rank}->{self.rank}:{seq}"
         deadline = time.time() + self._op_timeout_s
-        while True:
-            val = self._coord_call(lambda: self._coord.take.remote(key),
-                                   deadline, "recv")
-            if val is not None:
-                return np.asarray(val, dtype=dtype).reshape(shape)
-            if time.time() > deadline:
-                raise TimeoutError("recv timed out")
-            time.sleep(0.002)
+        with tracing.span(f"collective.{key}", kind="collective",
+                          attrs={"group": self.group_name,
+                                 "rank": self.rank}):
+            while True:
+                val = self._coord_call(
+                    lambda: self._coord.take.remote(key), deadline, "recv")
+                if val is not None:
+                    return np.asarray(val, dtype=dtype).reshape(shape)
+                if time.time() > deadline:
+                    raise TimeoutError("recv timed out")
+                time.sleep(0.002)
 
     def destroy(self):
         self._destroyed.set()

@@ -91,6 +91,10 @@ class _DeploymentState:
         # monotonic timestamps of detected replica deaths whose
         # replacement has not been spawned yet (time-to-replace clock).
         self.death_pending: List[float] = []
+        # Replicas a _scale_to_target has claimed and not yet appended:
+        # deploy() and the reconcile loop both scale, and each must see
+        # the other's spawns in flight, or both fill the same deficit.
+        self.spawning = 0
 
 
 class ServeController:
@@ -570,7 +574,9 @@ class ServeController:
         from ray_tpu_torch.serve.replica import Replica
 
         with self._lock:
-            deficit = st.target - len(st.replicas)
+            deficit = st.target - len(st.replicas) - st.spawning
+            if deficit > 0:
+                st.spawning += deficit
         cls = ray_tpu_torch.remote(Replica)
         opts = dict(st.config.get("ray_actor_options") or {})
         # Replicas serve concurrent requests up to max_ongoing_requests
@@ -579,18 +585,26 @@ class ServeController:
         # and queue-depth autoscaling could never trigger.
         opts.setdefault("max_concurrency",
                         st.config.get("max_ongoing_requests") or 100)
-        for _ in range(max(0, deficit)):
-            rid = f"{name}#{uuid.uuid4().hex[:6]}"
-            handle = cls.options(**opts).remote(
-                st.blob, st.init_args, st.init_kwargs, name, rid,
-                user_config=st.config.get("user_config"))
-            with self._lock:
-                st.replicas.append(handle)
-                if st.death_pending:
-                    # This spawn replaces a detected death: its first
-                    # successful stats probe closes the clock.
-                    self._replacing[id(handle)] = (
-                        name, st.death_pending.pop(0))
+        spawned = 0
+        try:
+            for _ in range(max(0, deficit)):
+                rid = f"{name}#{uuid.uuid4().hex[:6]}"
+                handle = cls.options(**opts).remote(
+                    st.blob, st.init_args, st.init_kwargs, name, rid,
+                    user_config=st.config.get("user_config"))
+                with self._lock:
+                    spawned += 1
+                    st.spawning -= 1
+                    st.replicas.append(handle)
+                    if st.death_pending:
+                        # This spawn replaces a detected death: its first
+                        # successful stats probe closes the clock.
+                        self._replacing[id(handle)] = (
+                            name, st.death_pending.pop(0))
+        finally:
+            if deficit > spawned:
+                with self._lock:
+                    st.spawning -= deficit - spawned
         if deficit < 0:
             with self._lock:
                 extra, st.replicas = (st.replicas[st.target:],

@@ -91,6 +91,20 @@ def runtime_state_api(runtime: Any):
     return getattr(state, "api", None)
 
 
+def runtime_gcs(runtime: Any):
+    """The GCS channel of ``runtime``'s connected worker in this process,
+    or None (no cluster, or a runtime with none, as ``LocalRuntime``)."""
+    import ray_tpu_torch
+
+    if runtime is ray_tpu_torch:
+        from ray_tpu_torch._private import worker as worker_mod
+    else:
+        worker_mod = getattr(getattr(runtime, "_private", None), "worker",
+                             None)
+    w = getattr(worker_mod, "global_worker", lambda: None)()
+    return getattr(w, "gcs", None)
+
+
 def _metrics():
     """The gang's counters (in-process, as the port's other metrics)."""
     global _gang_metrics
@@ -456,6 +470,17 @@ class WorkerGroup:
             self._poisoned = True
         _metrics()["poisoned"].inc()
         collective.poison_group(self.group_name, reason, runtime=self._rt)
+        # Slice death declared: every node dumps its flight recorder, so
+        # the restart leaves a postmortem holding the dead rank's last
+        # task events and the node's samples (dashboard/agent.py).
+        gcs = runtime_gcs(self._rt)
+        if gcs is not None:
+            try:
+                gcs.notify("flight_dump", {
+                    "reason": f"gang {self.group_name} poisoned: {reason}"})
+            except Exception:
+                logger.warning("flight-recorder dump request failed after "
+                               "gang poison", exc_info=True)
 
     def wait_gang_error(self) -> Optional[GangMemberDiedError]:
         """The gang error, once the supervisor has recorded one, waiting up

@@ -27,6 +27,17 @@ until it places. The port queues what the pending grants can take
 (``lease_pipeline_depth`` each); what a flood submits beyond that, or
 while the shape is inside its denial window, still takes the blob route
 (``submit_classic_patch``).
+
+3. ObjectRefs nested inside a task's args (a list of refs): both
+runtimes pinned only the top-level refs while a task was in flight, and
+kept a nested ref alive only through ``free_grace_s`` (1 s) after the
+caller dropped it. A task that waited longer than that in a queue (a
+busy node, a busy actor, a worker still starting under load) found its
+nested objects freed, and its ``get`` of them waited past any timeout
+(``test_torch_basic.py::test_nested_refs_not_resolved`` failed so under
+load). The port's specs carry those ids (``nested_deps``), pinned and
+released with the args (``task_spec.pinned_deps``); they are still not
+waited for.
 """
 
 import time
@@ -309,3 +320,43 @@ def test_burst_within_pending_grants_stays_on_leases(monkeypatch):
                   if l.local and not l.dead]
     assert seen == {"classic": 0, "revokes": 0}, seen
     assert leases
+
+
+def _nested_after_a_queue(rt, f, *blockers):
+    """``f``'s result for a list of three ``put`` refs the caller drops at
+    once, submitted behind ``blockers``, which hold its slot for 3 s."""
+    out = f.remote([rt.put(i) for i in range(3)])
+    value = rt.get(out, timeout=30)
+    rt.get(list(blockers), timeout=30)
+    return value
+
+
+def test_nested_refs_survive_a_queued_task():
+    with ports_runtime(num_cpus=1, object_store_memory=64 * MiB) as rt:
+        @rt.remote
+        def block(s):
+            time.sleep(s)
+            return 1
+
+        @rt.remote
+        def f(lst):
+            return [rt.get(r, timeout=10) for r in lst]
+
+        assert _nested_after_a_queue(rt, f, block.remote(3.0)) == [0, 1, 2]
+
+
+def test_nested_refs_survive_a_queued_actor_call():
+    with ports_runtime(num_cpus=2, object_store_memory=64 * MiB) as rt:
+        @rt.remote
+        class A:
+            def block(self, s):
+                time.sleep(s)
+                return 1
+
+            def f(self, lst):
+                return [rt.get(r, timeout=10) for r in lst]
+
+        a = A.remote()
+        assert rt.get(a.block.remote(0), timeout=60) == 1
+        assert _nested_after_a_queue(rt, a.f, a.block.remote(3.0)) == \
+            [0, 1, 2]

@@ -9,6 +9,13 @@ runtimes share (ROADMAP §3); each fails on the code before its fix.
 usage report skips only a GCS that does not answer one bounded dial, so
 a connection a GCS restart closed still gets its report.
 
+``test_shutdown_with_a_ref_delta_left_and_a_dead_gcs``: the driver's
+shutdown flushes its ref tracker's last deltas; with the GCS gone, that
+flush redialed it for ``gcs_rpc_timeout_s`` and took 91 s
+(``test_torch_gcs_fault_tolerance.py``'s dead-GCS teardown failed so
+under load). The shutdown now closes a channel whose GCS does not answer
+first.
+
 ``test_worker_dead_before_the_lease_dial_falls_back_at_once``: a leased
 worker that dies between its grant and the caller's dial; the caller's
 task waited out ``protocol.connect``'s 30 s before it fell back (both
@@ -173,6 +180,30 @@ def test_usage_report_redials_a_closed_gcs_connection():
         assert took < 5.0, f"the skipped report took {took:.1f} s"
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_shutdown_with_a_ref_delta_left_and_a_dead_gcs():
+    import ray_tpu_torch
+    from ray_tpu_torch._private import worker as worker_mod
+
+    ray_tpu_torch.init(num_cpus=1, object_store_memory=32 * MiB)
+    try:
+        w = worker_mod.global_worker()
+        worker_mod._global_cluster.gcs.crash_for_test()
+        deadline = time.time() + 10
+        while not w.gcs.closed and time.time() < deadline:
+            time.sleep(0.05)
+        assert w.gcs.closed
+        # The tracker's 100 ms loop takes a first delta and redials the
+        # dead GCS with it; a second one waits for the shutdown's flush.
+        w._refs.incref(b"\x01" * 28)
+        time.sleep(0.5)
+        w._refs.incref(b"\x02" * 28)
+    finally:
+        t0 = time.time()
+        ray_tpu_torch.shutdown()
+        took = time.time() - t0
+    assert took < 10.0, f"shutdown with a dead GCS took {took:.1f} s"
 
 
 def test_worker_dead_before_the_lease_dial_falls_back_at_once(monkeypatch):

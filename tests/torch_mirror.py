@@ -5,11 +5,10 @@
 with ``ast`` (neither is imported) and holds that the twin has the same
 set, besides its own coverage test, ``COVERAGE_TEST``.
 
-``NOT_MIRRORED`` lists the 17 reference files with no same-named twin
-yet (ROADMAP §1 item 1 orders them: observability, then ``runtime_env``,
-then the rest); ``tests/test_torch_mirror_coverage.py`` holds it against
-the directory, so ROADMAP §1 and the tests cannot drift apart. Several of them have
-twins under another name (``test_cluster_autoscaler.py`` in
+``NOT_MIRRORED`` lists the 10 reference files with no same-named twin
+yet (ROADMAP §1 item 1 orders them); ``tests/test_torch_mirror_coverage.py``
+holds it against the directory, so ROADMAP §1 and the tests cannot drift
+apart. Several of them have twins under another name (``test_cluster_autoscaler.py`` in
 ``test_torch_autoscaler.py``, the fast-path toggles in
 ``test_torch_*_fastpath_ab.py``).
 """
@@ -24,10 +23,8 @@ COVERAGE_TEST = "test_mirrors_every_reference_test"
 
 NOT_MIRRORED = frozenset({
     "apex", "cluster_autoscaler", "cluster_launcher", "collective_dist",
-    "dag_workflow", "data_actor_pool", "data_streaming", "log_streaming",
-    "metrics_dashboard", "observability_agent", "profiler", "pubsub",
-    "runtime_env", "tpu_pod_provider", "tracing", "util_extras",
-    "util_queue"})
+    "dag_workflow", "data_actor_pool", "data_streaming", "tpu_pod_provider",
+    "util_extras", "util_queue"})
 
 
 def names_in(path) -> set:

@@ -1,8 +1,9 @@
-"""Loop the checks of two tests that failed now and then under load, on a
-tree of this repo, and count the passes.
+"""Loop a check or a test that failed now and then under load, on a tree
+of this repo, and count the passes.
 
     python3 tools/flaky_loops.py [--tree DIR] [--loops 20]
         [--check death_push|fp_all_on] [--runtime ray_tpu|ray_tpu_torch]
+    python3 tools/flaky_loops.py [--tree DIR] [--loops 10] --test NODEID
 
 - ``death_push``: ``tests/test_torch_gang_fault_tolerance.py::
   test_death_push_detects_sigkill``'s check (the port's gang supervisor on
@@ -14,7 +15,13 @@ tree of this repo, and count the passes.
   results are the expected ones and every probe, ``local_actor`` among
   them, reads True.
 
-With no ``--check``, each check runs in a fresh interpreter of its own
+- ``--test NODEID``: a pytest node id of the tree (``tests/test_x.py::
+  test_y``), run ``--loops`` times, each in a fresh ``python -m pytest``
+  from the tree's root; a loop passes when pytest exits 0. A test that
+  runs past 60 s prints every thread's stack (``faulthandler_timeout``),
+  and each loop's last lines go to stdout.
+
+With no ``--check`` and no ``--test``, each check runs in a fresh interpreter of its own
 (``fp_all_on`` once for each runtime, never both runtimes in one
 process), and the last line is a JSON object of the pass counts. The
 tree's ``tests`` directory gives the checks, so ``--tree`` of an unpacked
@@ -88,6 +95,22 @@ def fp_all_on(runtime, loops, tmp):
     return out
 
 
+def test_loops(tree, node_id, loops):
+    out = []
+    for i in range(loops):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", node_id, "-q", "-s",
+             "-p", "no:cacheprovider", "-o", "faulthandler_timeout=60"],
+            cwd=tree, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, stdin=subprocess.DEVNULL)
+        out.append({"ok": proc.returncode == 0,
+                    "s": round(time.time() - t0, 1)})
+        tail = "\n".join(proc.stdout.splitlines()[-15:])
+        print(f"loop {i}: {out[-1]}\n{tail}", flush=True)
+    return out
+
+
 class _Path(str):
     """The ``tmp_path`` the gang check takes (it joins with ``/``)."""
 
@@ -102,8 +125,15 @@ def main():
     ap.add_argument("--check", choices=["death_push", "fp_all_on"])
     ap.add_argument("--runtime", default="ray_tpu_torch",
                     choices=["ray_tpu", "ray_tpu_torch"])
+    ap.add_argument("--test", help="a pytest node id to loop instead")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
+    if args.test is not None:
+        out = test_loops(tree, args.test, args.loops)
+        print(json.dumps({"tree": tree, "test": args.test,
+                          "passed": sum(r["ok"] for r in out),
+                          "loops": len(out)}), flush=True)
+        return 0
     if args.check is None:
         counts = {}
         for check, runtime in (("death_push", "ray_tpu"),
