@@ -342,7 +342,7 @@ class GcsServer:
         self._client_refs: Dict[str, Set[bytes]] = collections.defaultdict(set)
         self._pending_free: Dict[bytes, float] = {}       # oid -> deadline
         self._task_arg_pins: Dict[bytes, int] = collections.defaultdict(int)
-        self._pinned_tasks: Set[bytes] = set()            # task ids holding pins
+        self._pinned_tasks: Set[bytes] = set()   # task or actor ids holding pins
         # Rerouted actor-task specs whose args the GCS pins until done.
         self._actor_task_pins: Dict[bytes, Any] = {}
         # Lineage: retained specs for resubmission + attempt caps.
@@ -712,6 +712,7 @@ class GcsServer:
             if entry.state not in (DEAD,):
                 entry.state = RESTARTING
                 self._recovering_actors[aid] = grace
+                self._pin_actor_args(entry.spec, True)
             self._actors[aid] = entry
             if entry.spec.name and entry.state != DEAD:
                 self._named_actors[(entry.spec.namespace,
@@ -992,6 +993,8 @@ class GcsServer:
                 if a is not None and a.state != DEAD and a.node_id is None:
                     a.state = ALIVE
                     a.node_id = p["node_id"]
+                    if a.restarts_left == 0:
+                        self._pin_actor_args(a.spec, False)
                     if not a.local_placement:
                         # NM-placed actors' resources arrive in the
                         # node's local_held aggregate, never centrally.
@@ -2100,8 +2103,15 @@ class GcsServer:
             if counts is not None and counts.pop(client_id, None) is not None:
                 self._maybe_schedule_free(oid)
 
+    @staticmethod
+    def _pin_key(spec) -> bytes:
+        """A spec's key in ``_pinned_tasks``: its task id, or an actor
+        creation's actor id."""
+        tid = getattr(spec, "task_id", None)
+        return (tid if tid is not None else spec.actor_id).binary()
+
     def _pin_task_args(self, spec):
-        tid = spec.task_id.binary()
+        tid = self._pin_key(spec)
         if tid in self._pinned_tasks:
             return
         self._pinned_tasks.add(tid)
@@ -2110,7 +2120,7 @@ class GcsServer:
             self._pending_free.pop(d.binary(), None)
 
     def _unpin_task_args(self, spec):
-        tid = spec.task_id.binary()
+        tid = self._pin_key(spec)
         if tid not in self._pinned_tasks:
             return
         self._pinned_tasks.discard(tid)
@@ -2214,6 +2224,7 @@ class GcsServer:
                 self._named_actors[key] = spec.actor_id.binary()
             entry = ActorEntry(spec=spec, restarts_left=spec.max_restarts)
             self._actors[spec.actor_id.binary()] = entry
+            self._pin_actor_args(spec, True)
             if not self._schedule_actor(entry):
                 self._queued_tasks.append(_ActorCreationShim(entry))
             self._persist_actor(spec.actor_id.binary())
@@ -2273,6 +2284,7 @@ class GcsServer:
                                restarts_left=spec.max_restarts,
                                local_placement=True)
             self._actors[aid] = entry
+            self._pin_actor_args(spec, True)
             if spec.name:
                 self._named_actors.setdefault(
                     (spec.namespace, spec.name), aid)
@@ -2292,6 +2304,9 @@ class GcsServer:
             state = p["state"]
             if state == ALIVE:
                 entry.state = ALIVE
+                if entry.restarts_left == 0:
+                    # The constructor has run and will not run again.
+                    self._pin_actor_args(entry.spec, False)
                 self._persist_actor(aid)
                 self._reply_actor_waiters(entry)
                 self._publish("actor_state", {
@@ -2302,6 +2317,7 @@ class GcsServer:
                     # __init__ raised: actor is permanently dead
                     entry.state = DEAD
                     entry.death_cause = p.get("error", "creation failed")
+                    self._pin_actor_args(entry.spec, False)
                     if entry.node_id and not entry.local_placement:
                         # (NM-placed: the node's own ledger releases.)
                         self._release_for(entry.spec, entry.node_id)
@@ -2325,19 +2341,32 @@ class GcsServer:
             if entry.restarts_left > 0:
                 entry.restarts_left -= 1
             entry.num_restarts += 1
-            entry.state = RESTARTING
+            entry.state = RESTARTING   # (its args are still pinned)
             logger.info("restarting actor %s (%s)", entry.spec.class_name, cause)
             if not self._schedule_actor(entry):
                 self._queued_tasks.append(_ActorCreationShim(entry))
         else:
             entry.state = DEAD
             entry.death_cause = cause
+            self._pin_actor_args(entry.spec, False)
             self._reply_actor_waiters(entry)
         self._persist_actor(aid)
         self._publish("actor_state", {
             "actor_id": aid.hex(), "state": entry.state,
             "class_name": entry.spec.class_name,
             "death_cause": entry.death_cause})
+
+    def _pin_actor_args(self, spec: ActorCreationSpec, pin: bool):
+        """Pin (or release) the objects an actor's constructor takes, its
+        top-level args and the refs nested in them, from registration
+        until the constructor has run for the last time (ALIVE with no
+        restart left) or the actor is dead: an actor that waits for a
+        place, or for a place to restart in, past ``free_grace_s`` still
+        finds them. Pinning is idempotent per actor. Caller holds
+        _sched_lock + _actor_lock (or is the constructor restoring
+        tables); obj nests forward."""
+        with self._obj_lock:
+            (self._pin_task_args if pin else self._unpin_task_args)(spec)
 
     def _reply_actor_waiters(self, entry: ActorEntry):
         waiters, entry.waiters = entry.waiters, []

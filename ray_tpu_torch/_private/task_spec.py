@@ -242,6 +242,9 @@ class ActorCreationSpec:
     # runtime_env working_dir ships driver code; same-host equivalent).
     sys_path: Optional[List[str]] = None
     trace_ctx: Optional[Dict[str, Any]] = None   # see TaskSpec.trace_ctx
+    # See TaskSpec.nested_deps: pinned by the GCS from registration until
+    # the constructor has run with no restart left, or the actor has died.
+    nested_deps: Tuple[ObjectID, ...] = ()
 
 
 @dataclass

@@ -1538,8 +1538,8 @@ class CoreWorker:
     _EMPTY_ARGS_BLOB: Optional[bytes] = None
 
     def _serialize_args(self, args, kwargs) -> Tuple[Any, List[ObjectID]]:
-        """``(blob, deps)``, the reference's interface (an actor's
-        constructor args, and the mirrored tests, read it)."""
+        """``(blob, deps)``, the reference's interface (the mirrored
+        tests read it)."""
         blob, deps, _ = self._serialize_task_args(args, kwargs)
         return blob, deps
 
@@ -2094,7 +2094,7 @@ class CoreWorker:
             from ray_tpu_torch._private import runtime_env as renv_mod
 
             runtime_env = renv_mod.package_runtime_env(self.kv(), runtime_env)
-        args_blob, deps = self._serialize_args(args, kwargs)
+        args_blob, deps, nested = self._serialize_task_args(args, kwargs)
         actor_id = ActorID.of(self.job_id)
         spec = ActorCreationSpec(
             actor_id=actor_id,
@@ -2119,6 +2119,7 @@ class CoreWorker:
             class_name=class_name,
             sys_path=list(serialization.import_roots()),
             trace_ctx=_tracing().for_submit(),
+            nested_deps=nested,
         )
         with self._actor_lock:
             self._actor_routes[actor_id.binary()] = {

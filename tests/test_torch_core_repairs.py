@@ -38,8 +38,18 @@ nested objects freed, and its ``get`` of them waited past any timeout
 load). The port's specs carry those ids (``nested_deps``), pinned and
 released with the args (``task_spec.pinned_deps``); they are still not
 waited for.
+
+4. The same for an actor's constructor: the GCS holds an actor's args
+until the actor is placed, and a ref nested in them lived only through
+``free_grace_s``, so an actor that waited longer for a node found its
+nested objects freed. ``ActorCreationSpec`` carries ``nested_deps`` too,
+and the GCS pins them, with the top-level args, from registration until
+the constructor has run with no restart left, or the actor has died: a
+restartable actor that loses its node and waits for another still finds
+them, and a GCS that restarts pins them again for the actors it restores.
 """
 
+import os
 import time
 
 import numpy as np
@@ -360,3 +370,79 @@ def test_nested_refs_survive_a_queued_actor_call():
         assert rt.get(a.block.remote(0), timeout=60) == 1
         assert _nested_after_a_queue(rt, a.f, a.block.remote(3.0)) == \
             [0, 1, 2]
+
+
+def test_nested_refs_survive_an_actor_waiting_for_a_node():
+    """An actor whose constructor takes ``[ref]`` and needs a resource
+    that only a node added 3 s later has: its constructor's ``get``
+    returns the value within a bounded time."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    with pytest.MonkeyPatch.context() as mp, \
+            deadline(120, what="an actor waiting for a node"):
+        mp.setenv("OMP_NUM_THREADS", "1")
+        c = Cluster(initialize_head=True, head_node_args={"num_cpus": 1})
+        c.connect(object_store_memory=64 * MiB)
+        try:
+            @rt.remote(num_cpus=0, resources={"late": 1.0})
+            class Holder:
+                def __init__(self, refs):
+                    self.values = [rt.get(r, timeout=10) for r in refs]
+
+                def values_(self):
+                    return self.values
+
+            h = Holder.remote([rt.put(np.arange(4) * 7)])
+            time.sleep(3.0)
+            c.add_node(num_cpus=1, resources={"late": 1.0})
+            got = rt.get(h.values_.remote(), timeout=60)
+            assert [v.tolist() for v in got] == [[0, 7, 14, 21]]
+        finally:
+            rt.shutdown()
+            c.shutdown()
+
+
+def test_nested_refs_survive_an_actor_restarting_on_a_late_node(tmp_path):
+    """A restartable actor whose constructor takes ``[ref]`` loses its
+    node before the constructor has finished, and the only node that can
+    take it again arrives 3.5 s later: the restarted constructor's
+    ``get`` still returns the value."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    started = tmp_path / "started"
+    with pytest.MonkeyPatch.context() as mp, \
+            deadline(120, what="an actor restarting on a late node"):
+        mp.setenv("OMP_NUM_THREADS", "1")
+        c = Cluster(initialize_head=True, head_node_args={"num_cpus": 1})
+        first = c.add_node(num_cpus=1, resources={"late": 1.0})
+        c.connect(object_store_memory=64 * MiB)
+        c.wait_for_nodes()
+        try:
+            # Restarts without limit: the worker's death, the node's, and
+            # a re-placement on the node going down may each cost one.
+            @rt.remote(num_cpus=0, resources={"late": 1.0}, max_restarts=-1)
+            class Holder:
+                def __init__(self, refs, path):
+                    if not os.path.exists(path):
+                        open(path, "w").close()
+                        time.sleep(60)   # the first node goes meanwhile
+                    self.values = [rt.get(r, timeout=10) for r in refs]
+
+                def values_(self):
+                    return self.values
+
+            h = Holder.remote([rt.put(np.arange(4) * 7)], str(started))
+            t0 = time.time()
+            while not started.exists():
+                assert time.time() - t0 < 60, "the constructor never ran"
+                time.sleep(0.05)
+            c.remove_node(first)
+            time.sleep(3.5)
+            c.add_node(num_cpus=1, resources={"late": 1.0})
+            got = rt.get(h.values_.remote(), timeout=60)
+            assert [v.tolist() for v in got] == [[0, 7, 14, 21]]
+        finally:
+            rt.shutdown()
+            c.shutdown()

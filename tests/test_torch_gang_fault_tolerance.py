@@ -1,6 +1,7 @@
 """Gang fault tolerance of the port's trainer on the ``ray_tpu`` runtime:
-twins of tests/test_gang_fault_tolerance.py's SIGKILL, poll-isolation and
-poisoning tests, with a ``torch_dist`` (gloo) gang on the CPU, and the
+twins of tests/test_gang_fault_tolerance.py's SIGKILL, poll-isolation,
+poisoning and chaos-sweep tests (the sweep marked ``slow``, as the
+reference's is), with a ``torch_dist`` (gloo) gang on the CPU, and the
 supervisor's GCS death push (``ray_tpu.experimental.pubsub``, the
 runtime's own). The checks live in ``torch_gang_programs``;
 ``test_torch_gang_fault_tolerance_port`` runs them on ``ray_tpu_torch``.
@@ -51,3 +52,8 @@ def test_death_push_detects_sigkill(gang_cluster, tmp_path):
 
 def test_death_push_before_first_heartbeat(gang_cluster, tmp_path):
     gp.death_push_before_first_heartbeat(ray_tpu, tmp_path)
+
+
+@pytest.mark.slow
+def test_chaos_gang_killer_sweep(gang_cluster, tmp_path):
+    gp.chaos_gang_killer_sweep(ray_tpu, tmp_path)

@@ -1,8 +1,9 @@
 """Gang fault tolerance of the port's trainer on the port's own runtime
 (``ray_tpu_torch``): the checks of ``torch_gang_programs`` that
 ``test_torch_gang_fault_tolerance`` runs on ``ray_tpu`` — SIGKILL
-recovery, poll isolation, poisoning of a pending collective, and the
-supervisor's GCS death push with its pings unable to fail; and, on this
+recovery, poll isolation, poisoning of a pending collective, the
+supervisor's GCS death push with its pings unable to fail, and the chaos
+sweep (marked ``slow``, as the reference's is); and, on this
 runtime alone, the group's one read of its ranks' states, which finds a
 rank that died before the group subscribed."""
 
@@ -63,3 +64,9 @@ def test_death_before_subscription_found_by_the_read(rt, tmp_path):
     with deadline(what="the read of the ranks' states on the port's "
                        "runtime"):
         gp.death_before_subscription_found_by_the_read(rt, tmp_path)
+
+
+@pytest.mark.slow
+def test_chaos_gang_killer_sweep(rt, tmp_path):
+    with deadline(450, what="the chaos sweep on the port's runtime"):
+        gp.chaos_gang_killer_sweep(rt, tmp_path)

@@ -1,6 +1,6 @@
-"""The reference's test files with no same-named twin on the port are
-exactly those ``torch_mirror.NOT_MIRRORED`` lists (ROADMAP §1 queues
-them): a twin added, or a reference file added, must update the list."""
+"""Every reference test file has its same-named twin on the port:
+``torch_mirror.NOT_MIRRORED`` is empty, and the directory agrees, so a
+reference file added without a twin fails here."""
 
 import torch_mirror
 

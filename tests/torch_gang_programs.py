@@ -1,7 +1,7 @@
 """Gang fault-tolerance checks of the port's trainer, run on either runtime.
 
-Twins of tests/test_gang_fault_tolerance.py's SIGKILL, poll-isolation and
-poisoning tests, and a check of the supervisor's GCS death push. Each
+Twins of tests/test_gang_fault_tolerance.py's SIGKILL, poll-isolation,
+poisoning and chaos-sweep tests, and a check of the supervisor's GCS death push. Each
 check takes the runtime module (``ray_tpu`` or ``ray_tpu_torch``), whose
 cluster the calling test module holds; a ``torch_dist`` gang is a gloo
 world on the CPU. The loops run in the runtime's worker processes, which
@@ -200,6 +200,72 @@ def sigkill_one_rank_mid_step_recovers(rt, tmp_path):
 
     assert _metrics()["restarts"].value() >= restarts0 + 1
     assert _metrics()["poisoned"].value() >= poisoned0 + 1
+
+
+def chaos_gang_killer_sweep(rt, tmp_path):
+    """NodeKiller-style chaos: up to two SIGKILLs of random ranks of a
+    2-rank ``torch_dist`` gang during a 10-step ``fit``, each after a
+    checkpoint and after the last killed gang re-formed; the trainer keeps
+    re-forming from checkpoints and finishes correctly."""
+    import random
+
+    from ray_tpu_torch.train import (
+        FailureConfig, RunConfig, ScalingConfig, TorchDistTrainer,
+    )
+
+    side = str(tmp_path / "side")
+    os.makedirs(side, exist_ok=True)
+    steps = 10
+    run_dir = str(tmp_path / "gangchaos")
+    stop = threading.Event()
+    kills = []
+
+    def killer():
+        rng = random.Random(0)
+        killed_pids = set()
+        deadline = time.time() + 240
+        while (not stop.is_set() and len(kills) < 2
+               and time.time() < deadline):
+            if not _run_dir_has_checkpoint(run_dir):
+                time.sleep(0.1)
+                continue
+            rank = rng.choice([0, 1])
+            pid = _read_pid(side, rank)
+            if pid is None:
+                time.sleep(0.1)
+                continue
+            if pid in killed_pids:   # wait for the re-formed gang
+                time.sleep(0.2)
+                continue
+            killed_pids.add(pid)
+            kills.append((rank, pid, time.time()))
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+            time.sleep(3.0)   # let the gang re-form and progress
+
+    trainer = TorchDistTrainer(
+        gang_loop,
+        train_loop_config={"side_dir": side, "steps": steps,
+                           "step_s": 0.25},
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(
+            name="gangchaos", storage_path=str(tmp_path),
+            failure_config=FailureConfig(max_failures=6)),
+        runtime=rt, device="cpu")
+    kth = threading.Thread(target=killer, daemon=True)
+    kth.start()
+    try:
+        result = fit_bounded(trainer, timeout_s=420)
+    finally:
+        stop.set()
+    assert result.ok, result.error
+    assert kills, "chaos killer never fired"
+    assert result.num_restarts >= 1
+    hist = result.metrics_history
+    assert hist[-1]["step"] == steps - 1
+    assert all(m["allreduce0"] == 3.0 for m in hist)
 
 
 def worker_group_poll_isolates_dead_rank(rt):

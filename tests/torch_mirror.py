@@ -5,12 +5,10 @@
 with ``ast`` (neither is imported) and holds that the twin has the same
 set, besides its own coverage test, ``COVERAGE_TEST``.
 
-``NOT_MIRRORED`` lists the 10 reference files with no same-named twin
-yet (ROADMAP §1 item 1 orders them); ``tests/test_torch_mirror_coverage.py``
-holds it against the directory, so ROADMAP §1 and the tests cannot drift
-apart. Several of them have twins under another name (``test_cluster_autoscaler.py`` in
-``test_torch_autoscaler.py``, the fast-path toggles in
-``test_torch_*_fastpath_ab.py``).
+``NOT_MIRRORED`` lists the reference files with no same-named twin. It
+is empty: every reference test file has its twin.
+``tests/test_torch_mirror_coverage.py`` holds it against the directory,
+so a reference file added without a twin fails there.
 """
 
 from __future__ import annotations
@@ -21,10 +19,7 @@ import pathlib
 TESTS = pathlib.Path(__file__).resolve().parent
 COVERAGE_TEST = "test_mirrors_every_reference_test"
 
-NOT_MIRRORED = frozenset({
-    "apex", "cluster_autoscaler", "cluster_launcher", "collective_dist",
-    "dag_workflow", "data_actor_pool", "data_streaming", "tpu_pod_provider",
-    "util_extras", "util_queue"})
+NOT_MIRRORED = frozenset()
 
 
 def names_in(path) -> set:
